@@ -1,4 +1,4 @@
-"""Carry parameters across from the JAX package.
+"""Carry parameters and score-store state across from the JAX package.
 
 ``params_from_jax`` converts the pytree of ``repro/models/transformer.py:
 init_lm`` (:204-257), given as numpy arrays (``jax.device_get`` of it, or
@@ -7,6 +7,9 @@ nested keys, stacked ``layers/*`` with the leading L axis, and the
 ``(d_in, d_out)`` layout of ``x @ W`` kept as it is. ``embed/tok`` is the
 (V, d) table; ``embed/head`` (d, V) is present only for an untied head
 (``repro/models/layers.py:210-228``); with tying the head is ``tok.T``.
+
+``scores_from_jax`` converts the JAX ``ESScores`` or ``QuantizedScores``
+(``repro/core/scores.py``) into the port's dataclass of the same fields.
 
 This module imports no JAX: the caller hands it numpy arrays.
 """
@@ -17,7 +20,12 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .core.scores import ESScores, QuantizedScores
+
 _DENSE_LAYER_KEYS = {"attn", "mlp", "ln1", "ln2"}
+_QUANT_FIELDS = ("s_q", "w_q", "seen_q", "s_scale", "w_scale", "err_rows",
+                 "err_seq", "err_s", "err_w")
+_F32_FIELDS = ("s", "w", "seen")
 
 
 def _convert(tree: Any, device) -> Any:
@@ -56,3 +64,19 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
     return params.detach().float().cpu().numpy()
+
+
+def scores_from_jax(scores: Any, device="cpu"):
+    """JAX ``ESScores`` or ``QuantizedScores`` with numpy leaves
+    (``jax.device_get`` of either) -> the port's ``ESScores`` /
+    ``QuantizedScores`` on ``device``, leaves copied with their dtypes."""
+    def field(name):
+        return torch.from_numpy(np.array(getattr(scores, name),
+                                         copy=True)).to(device)
+
+    if hasattr(scores, "s_q"):
+        return QuantizedScores(**{f: field(f) for f in _QUANT_FIELDS})
+    if hasattr(scores, "s"):
+        return ESScores(**{f: field(f) for f in _F32_FIELDS})
+    raise ValueError("scores_from_jax: neither ESScores nor "
+                     "QuantizedScores fields")

@@ -1,5 +1,5 @@
-"""ES engine: the train-step flavours of serial Evolved Sampling
-(counterpart of ``repro/core/engine.py:90-455``).
+"""ES engine: the train-step flavours of serial and packed Evolved
+Sampling (counterpart of ``repro/core/engine.py:90-455`` and :597-681).
 
 One serial-ES step (``es_step``) runs in four legs:
 
@@ -15,12 +15,16 @@ One serial-ES step (``es_step``) runs in four legs:
 the training forward's free per-sample losses. ``scheduled_step`` runs the
 scoring leg only on the steps a fixed ``FreqSchedule`` fires (k = 1 is
 ``es_step``). The reference's ``lax.cond`` decimation is a branch on the
-step counter here. Not ported yet: ``pipelined_step``, ``prime_step``,
-``flush_step``, ``EpochSession`` and the packed steps.
+step counter here. ``packed_step`` and ``packed_baseline_step`` run
+token-level ES on packed rows: one differentiated forward yields the
+per-document losses (through the segment-sum kernel) that both score and
+train. Not ported yet: ``pipelined_step``, ``prime_step``, ``flush_step``
+and ``EpochSession``.
 
-The state mutates in place: parameters and optimizer moments in the
-optimizer, the score triple in the store kernel. Steps return the state
-for symmetry with the reference.
+The engine is generic in the store (``ReplicatedStore`` or the int8
+``QuantizedStore``). The state mutates in place: parameters and optimizer
+moments in the optimizer, the score state in the store kernel. Steps
+return the state for symmetry with the reference.
 """
 from __future__ import annotations
 
@@ -30,11 +34,12 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from ..models.transformer import init_lm, lm_per_sample_loss, tree_leaves
+from ..models.transformer import (init_lm, lm_per_sample_loss,
+                                  lm_per_segment_loss, tree_leaves)
 from ..optim.adamw import OptConfig, OptState, apply_updates, init_opt_state
 from .frequency import FreqSchedule
-from .scores import ESScores, ReplicatedStore, weights_from_prev
-from .selection import select_minibatch
+from .scores import Scores, Store, make_store, weights_from_prev
+from .selection import masked_select_kept, select_minibatch
 
 Batch = Dict[str, torch.Tensor]
 
@@ -86,7 +91,7 @@ def init_cadence(device) -> CadenceState:
 class TrainState:
     params: Dict
     opt: OptState
-    scores: ESScores
+    scores: Scores
     generator: torch.Generator    # selection noise
     cadence: CadenceState
 
@@ -94,11 +99,11 @@ class TrainState:
 def init_train_state(model_cfg: ModelConfig, es_cfg: ESConfig,
                      opt_cfg: OptConfig, seed: int, device="cuda",
                      params: Optional[Dict] = None,
-                     store: Optional[ReplicatedStore] = None) -> TrainState:
+                     store: Optional[Store] = None) -> TrainState:
     """Fresh state; ``params`` (e.g. from ``bridge.params_from_jax``)
     replaces the random init. Parameters and selection noise come from two
-    generators seeded from ``seed``."""
-    store = store or ReplicatedStore()
+    generators seeded from ``seed``. The score leaf is ``store``'s."""
+    store = store if store is not None else make_store()
     if params is None:
         pgen = torch.Generator(device=device).manual_seed(seed)
         params = init_lm(model_cfg, pgen, device)
@@ -115,18 +120,18 @@ def _gather_batch(batch: Batch, idx: torch.Tensor) -> Batch:
 
 class ESEngine:
     """Train steps assembled from the scoring, selection and cadence
-    policies, over one ``ReplicatedStore``."""
+    policies, over one score store."""
 
     def __init__(self, model_cfg: ModelConfig, es_cfg: ESConfig,
                  opt_cfg: OptConfig, schedule: Callable[[int], float],
                  freq: Optional[FreqSchedule] = None,
                  cadence: Optional[CadenceConfig] = None,
-                 store: Optional[ReplicatedStore] = None):
+                 store: Optional[Store] = None):
         self.model_cfg = model_cfg
         self.es_cfg = es_cfg
         self.opt_cfg = opt_cfg
         self.schedule = schedule
-        self.store = store or ReplicatedStore()
+        self.store = store if store is not None else make_store()
         self.freq = freq or FreqSchedule()
         self.cadence = cadence or CadenceConfig()
 
@@ -136,19 +141,11 @@ class ESEngine:
     def _loss_and_grads(self, params: Dict, batch: Batch
                         ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
         """Training forward + backward -> (mean, per_sample, grads)."""
-        leaves = tree_leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
-        try:
+        def loss_fn():
             per_sample, mean = lm_per_sample_loss(self.model_cfg, params,
                                                   batch)
-            grads = torch.autograd.grad(mean, leaves)
-        finally:
-            for p in leaves:
-                p.requires_grad_(False)
-        it = iter(grads)
-        grad_tree = _rebuild(params, it)
-        return mean.detach(), per_sample.detach(), grad_tree
+            return mean, per_sample.detach()
+        return _value_and_grad(params, loss_fn)
 
     def _observe(self, cad: CadenceState, s_prev: torch.Tensor,
                  w_prev: torch.Tensor, losses: torch.Tensor,
@@ -273,6 +270,112 @@ class ESEngine:
         self._optim(state, grads, metrics)
         state.cadence = cad
         return state, metrics
+
+    def _packed_impl(self, state: TrainState, batch: Batch, select: bool,
+                     gumbel: Optional[torch.Tensor]
+                     ) -> Tuple[TrainState, Dict]:
+        """Segment-granular ES on a packed batch.
+
+        One differentiated forward serves scoring and training: the
+        detached per-document NLLs feed Eq. (3.1) against the gathered
+        prior scores, the masked Gumbel top-k keeps b of the valid
+        document slots, and the training loss is the kept-slot mean, so a
+        dropped document's term is multiplied by exactly zero. The store
+        is keyed by global document ids (``batch["doc_ids"]``); empty or
+        pruned slots carry -1, which the stores drop.
+        """
+        doc_ids = batch["doc_ids"]                       # (B, M)
+        n = doc_ids.numel()
+        flat_ids = doc_ids.reshape(n)
+        valid = flat_ids >= 0
+        validf = valid.to(torch.float32)
+        safe = torch.where(valid, flat_ids, torch.zeros_like(flat_ids))
+        s_prev, w_prev = self.store.gather(state.scores, safe)
+        b = min(self.es_cfg.minibatch, n)
+        select = select and b < n
+        gs = batch.get("doc_grad_scale")
+        scale = gs.reshape(n).to(torch.float32) if gs is not None \
+            else torch.ones(n, dtype=torch.float32, device=flat_ids.device)
+        zero = torch.zeros((), dtype=torch.float32, device=flat_ids.device)
+
+        def loss_fn():
+            per_seg, _ = lm_per_segment_loss(self.model_cfg, state.params,
+                                             batch)
+            per_seg = per_seg.reshape(n)
+            losses = per_seg.detach()
+            w = torch.where(valid, weights_from_prev(s_prev, losses,
+                                                     self.es_cfg.beta1),
+                            zero)
+            if select:
+                kept = masked_select_kept(self.es_cfg.method, w, valid, b,
+                                          generator=state.generator,
+                                          gumbel=gumbel)
+            else:
+                kept = valid
+            kf = kept.to(torch.float32)
+            mean = (torch.sum(per_seg * kf * scale)
+                    / torch.clamp(torch.sum(kf), min=1.0))
+            return mean, (losses, w, kept)
+
+        mean, (losses, w, kept), grads = _value_and_grad(state.params,
+                                                         loss_fn)
+        with torch.no_grad():
+            n_valid = torch.clamp(torch.sum(validf), min=1.0)
+            metrics = {
+                "loss": torch.sum(losses * validf) / n_valid,
+                "sel_loss": mean,
+                "bp_samples": torch.sum(kept.to(torch.float32)),
+                "seg_valid": torch.sum(validf),
+                "w_mean": torch.sum(w) / n_valid,
+                "w_max": torch.max(w),
+                # scoring rides the training forward: no scoring forward ran
+                "scored": 0.0,
+                "kept": kept,
+            }
+            # invalid slots observe zero drift and update nothing (-1 drops)
+            cad = self._observe(state.cadence, s_prev, w_prev,
+                                torch.where(valid, losses, s_prev),
+                                torch.where(valid, w, w_prev),
+                                state.opt.step)
+            self.store.update(state.scores,
+                              torch.where(valid, flat_ids,
+                                          torch.full_like(flat_ids, -1)),
+                              losses, self.es_cfg.beta1, self.es_cfg.beta2,
+                              fused=self.es_cfg.fused_scores)
+        self._optim(state, grads, metrics)
+        state.cadence = cad
+        return state, metrics
+
+    def packed_step(self, state: TrainState, batch: Batch, *,
+                    gumbel: Optional[torch.Tensor] = None
+                    ) -> Tuple[TrainState, Dict]:
+        """Packed batch with document-level selection (scoring fused into
+        the training forward). ``gumbel`` (B*M,) injects the noise."""
+        return self._packed_impl(state, batch, True, gumbel)
+
+    def packed_baseline_step(self, state: TrainState, batch: Batch, *,
+                             gumbel: Optional[torch.Tensor] = None
+                             ) -> Tuple[TrainState, Dict]:
+        """Packed batch, selection off: every valid document trains; the
+        store still updates from the free per-document losses. ``gumbel``
+        is accepted for symmetry and unused."""
+        return self._packed_impl(state, batch, False, gumbel)
+
+
+def _value_and_grad(params: Dict, loss_fn: Callable):
+    """Run ``loss_fn() -> (loss, aux)`` with gradients on the parameter
+    leaves -> (detached loss, aux, grads); the leaves stop requiring
+    gradients afterwards."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss, aux = loss_fn()
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return loss.detach(), aux, _rebuild(params, iter(grads))
 
 
 def _rebuild(tree, it):

@@ -1,9 +1,12 @@
 """Batch-level selection: pick a mini-batch of b from a meta-batch of B
-(counterpart of ``repro/core/selection.py:34-82``).
+(counterpart of ``repro/core/selection.py:34-115``).
 
   es / loss : Gumbel top-k, sampling without replacement with p_i ~ w_i
   order     : deterministic top-k on the weights (Ordered SGD)
   uniform   : uniform without replacement
+
+``masked_select_kept`` is the packed-batch form: it keeps at most k of the
+valid document slots and returns a kept mask.
 
 The Gumbel noise comes from the caller's ``torch.Generator``, or is
 injected as a tensor (``gumbel=``) so that a test can hand the port the
@@ -17,7 +20,7 @@ from typing import Optional, TYPE_CHECKING
 import torch
 
 if TYPE_CHECKING:
-    from .scores import ReplicatedStore
+    from .scores import Store
 
 _EPS = 1e-20
 
@@ -57,7 +60,7 @@ def uniform_select(n: int, k: int, *, device="cuda",
 
 
 def select_minibatch(method: str, weights: torch.Tensor, k: int, *,
-                     store: Optional["ReplicatedStore"] = None,
+                     store: Optional["Store"] = None,
                      generator: Optional[torch.Generator] = None,
                      gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dispatch on the method; ``weights`` are the meta-batch's w_i(t)."""
@@ -76,3 +79,36 @@ def select_minibatch(method: str, weights: torch.Tensor, k: int, *,
         return uniform_select(n, k, device=weights.device,
                               generator=generator, gumbel=gumbel)
     raise ValueError(f"unknown selection method {method!r}")
+
+
+def masked_select_kept(method: str, weights: torch.Tensor,
+                       valid: torch.Tensor, k: int, *,
+                       generator: Optional[torch.Generator] = None,
+                       gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Select at most k of the VALID slots -> (n,) bool kept mask.
+
+    Invalid slots (empty or pruned documents) take -inf keys, so they are
+    picked only when fewer than k valid slots exist, and the final
+    ``& valid`` drops them. ``gumbel`` (n,) injects the noise; with every
+    slot valid the keys are ``gumbel_topk_select``'s.
+    """
+    n = weights.shape[0]
+    if method in ("es", "eswp", "loss"):
+        logw = torch.log(torch.clamp(weights.float(), min=_EPS))
+        if gumbel is None:
+            gumbel = sample_gumbel((n,), generator, weights.device)
+        keys = logw + gumbel.to(logw.device)
+    elif method == "order":
+        keys = weights.float()
+    elif method in ("uniform", "baseline"):
+        if gumbel is None:
+            gumbel = sample_gumbel((n,), generator, weights.device)
+        keys = gumbel.to(weights.device).float()
+    else:
+        raise ValueError(f"unknown selection method {method!r}")
+    keys = torch.where(valid, keys, torch.full_like(keys, float("-inf")))
+    if k >= n:
+        return valid
+    kept = torch.zeros(n, dtype=torch.bool, device=weights.device)
+    kept[torch.topk(keys, k).indices] = True
+    return kept & valid

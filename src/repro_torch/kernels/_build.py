@@ -26,7 +26,8 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 CUDA_ROOTS = ("/usr/local/cuda",)
-SOURCES = ("score_update.cu", "xent.cu", "flash_attn.cu")
+SOURCES = ("score_update.cu", "xent.cu", "flash_attn.cu", "segsum.cu",
+           "quant_score_update.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,6 +43,13 @@ SIGNATURES = {
     "repro_xent_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
     # q, k, v, o, B, S, H, K, hd, causal, scale, stream
     "repro_flash_attn_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # nll, seg, mask, sums, counts, B, S, M, stream
+    "repro_segment_sum": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # s_q, w_q, seen_q, s_scale, w_scale, err_rows, err_seq, err_s, err_w,
+    # ids, gids, losses, slots, seqs, n, B, R, block, b1, 1-b1, b2, 1-b2,
+    # stream
+    "repro_quant_score_update": (_P,) * 14 + (_I, _I, _I, _I, _F, _F, _F, _F,
+                                              _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,6 +1,7 @@
-"""Dense decoder LM: init, hidden states, per-sample loss (counterpart of
-``repro/models/transformer.py``: ``init_lm`` :204, ``lm_hidden`` :270,
-``lm_per_sample_loss`` :378, for ``family == "dense"``).
+"""Dense decoder LM: init, hidden states, per-sample and per-segment loss
+(counterpart of ``repro/models/transformer.py``: ``init_lm`` :204,
+``lm_hidden`` :270, ``lm_per_sample_loss`` :378, ``lm_per_segment_loss``
+:397, for ``family == "dense"``).
 
 Parameters are a dict mirroring the JAX pytree, with the layer stack
 stacked along a leading L axis (``layers/attn/wq`` is (L, d, H*hd)):
@@ -16,10 +17,14 @@ Two forwards compute the same per-sample loss:
 * ``scoring=True``: the no-grad ES scoring forward, with attention through
   the flash-attention kernel and the loss through the fused cross-entropy
   kernel, which reads the (V, d) embedding table without a transpose.
+
+Packed rows (``positions`` and ``segment_ids``) take the training path
+with segment-isolated attention; ``lm_per_segment_loss`` is the packed
+step's one differentiated forward.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -29,7 +34,7 @@ from .attention import init_attn, mha
 from .layers import (Params, apply_norm, embed_tokens, init_embedding,
                      init_mlp, init_norm, mlp_fwd, unembed_matrix,
                      unembed_table)
-from .losses import per_sample_xent
+from .losses import per_sample_xent, per_segment_xent
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -87,22 +92,27 @@ def _unstack(tree, n: int) -> list:
 
 
 def _dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                 scoring: bool) -> torch.Tensor:
+                 scoring: bool, positions: Optional[torch.Tensor],
+                 segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
     h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
     x = x + mha(p["attn"], h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
                 head_dim=cfg.resolved_head_dim(), rope_theta=cfg.rope_theta,
-                scoring=scoring)
+                scoring=scoring, positions=positions,
+                segment_ids=segment_ids)
     h = apply_norm(cfg.norm_kind, x, p.get("ln2"))
     return x + mlp_fwd(cfg.mlp_kind, p["mlp"], h)
 
 
 def lm_hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
-              scoring: bool = False) -> torch.Tensor:
-    """tokens (B, S) -> final-normed hidden states (B, S, d), compute dtype."""
+              scoring: bool = False, positions: Optional[torch.Tensor] = None,
+              segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B, S) -> final-normed hidden states (B, S, d), compute dtype.
+    ``segment_ids``/``positions`` (B, S) isolate the documents of packed
+    rows."""
     require_dense(cfg)
     x = embed_tokens(params["embed"], tokens, dtype_of(cfg.compute_dtype))
     for p in _unstack(params["layers"], cfg.num_layers):
-        x = _dense_block(cfg, p, x, scoring)
+        x = _dense_block(cfg, p, x, scoring, positions, segment_ids)
     return apply_norm(cfg.norm_kind, x, params.get("final_norm"))
 
 
@@ -116,9 +126,26 @@ def lm_per_sample_loss(cfg: ModelConfig, params: Dict,
     flash-attention and fused cross-entropy kernels; call it under
     ``torch.no_grad()``.
     """
-    h = lm_hidden(cfg, params, batch["tokens"], scoring=scoring)
+    h = lm_hidden(cfg, params, batch["tokens"], scoring=scoring,
+                  positions=batch.get("positions"),
+                  segment_ids=batch.get("segment_ids"))
     if scoring:
         table = unembed_table(params["embed"]).to(h.dtype).contiguous()
         return per_sample_xent_fused(h, table, batch["labels"])
     return per_sample_xent(h, unembed_matrix(params["embed"]),
                            batch["labels"])
+
+
+def lm_per_segment_loss(cfg: ModelConfig, params: Dict,
+                        batch: Dict[str, torch.Tensor]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-document losses of a packed batch -> ``(per_seg (B, M), counts
+    (B, M))``, M = ``batch["doc_ids"].shape[1]``: the mean NLL over each
+    document's live tokens and their count (0 for an empty or pruned
+    slot, whose per_seg is 0). Differentiable (training path)."""
+    h = lm_hidden(cfg, params, batch["tokens"],
+                  positions=batch["positions"],
+                  segment_ids=batch["segment_ids"])
+    return per_segment_xent(h, unembed_matrix(params["embed"]),
+                            batch["labels"], batch["segment_ids"],
+                            max_segments=batch["doc_ids"].shape[1])

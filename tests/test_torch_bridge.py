@@ -80,7 +80,10 @@ def test_port_imports_neither_jax_nor_repro():
         "             m.startswith('jax.') or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 20, names\n"
+        "new = {'repro_torch.data.packed', 'repro_torch.kernels.segsum.ops',\n"
+        "       'repro_torch.kernels.segsum.ref'}\n"
+        "assert new <= set(names), sorted(new - set(names))\n"
+        "assert len(names) >= 23, names\n"
         "print('OK', len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1,6 +1,9 @@
-"""PyTorch port: the plain versions of the three CUDA kernels against the
-JAX Pallas kernels (interpret mode) and their XLA oracles, and the rule
-that a wrapper never runs the plain version for a tensor off the CPU.
+"""PyTorch port: the plain versions of the xent, flash-attention and
+score-update kernels against the JAX Pallas kernels (interpret mode) and
+their XLA oracles, and, for all five wrappers, the rule that a wrapper
+never runs the plain version for a tensor off the CPU. The segment-sum and
+quantized-update plain versions are held against JAX in
+test_torch_packing.py and test_torch_quant_store.py.
 
 The CUDA kernels themselves run only on the card (``chip_smoke.py`` holds
 each against its plain version there); on the CPU each wrapper takes its
@@ -29,7 +32,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.kernels.flash_attn.ops import gqa_flash_attention
 from repro_torch.kernels.score_update import ops as score_ops
-from repro_torch.kernels.score_update.ops import fused_score_update
+from repro_torch.kernels.score_update.ops import (fused_quant_score_update,
+                                                  fused_score_update)
+from repro_torch.kernels.segsum import ops as segsum_ops
+from repro_torch.kernels.segsum.ops import segment_sum
 from repro_torch.kernels.xent import ops as xent_ops
 from repro_torch.kernels.xent.ops import fused_xent, per_sample_xent_fused
 
@@ -228,6 +234,22 @@ CALLS = {
                          _meta((8,), torch.float32), _meta((8,), torch.float32),
                          _meta((8,), torch.int32), _meta((2,), torch.int32),
                          _meta((2,), torch.float32), beta1=0.2, beta2=0.9)),
+    "segment_sum": (segsum_ops, "segment_sum_ref", segment_sum,
+                    lambda: segment_sum(_meta((2, 16), torch.float32),
+                                        _meta((2, 16), torch.int32),
+                                        _meta((2, 16), torch.bool),
+                                        max_segments=4)),
+    "quant_score_update": (
+        score_ops, "quant_score_update_ref", fused_quant_score_update,
+        lambda: fused_quant_score_update(
+            *(_meta((8,), torch.int8) for _ in range(3)),
+            *(_meta((1,), torch.float32) for _ in range(2)),
+            *(_meta((4,), dt) for dt in (torch.int32, torch.int32,
+                                         torch.float32, torch.float32)),
+            *(_meta((2,), dt) for dt in (torch.int32, torch.int32,
+                                         torch.float32, torch.int32,
+                                         torch.int32)),
+            beta1=0.2, beta2=0.9, block=8)),
 }
 
 
@@ -241,7 +263,9 @@ def test_wrapper_off_cpu_raises_instead_of_plain(name, monkeypatch, tmp_path):
     monkeypatch.setattr(module, ref_name, _no_plain)
     with pytest.raises(ValueError, match="CUDA"):
         call()
-    monkeypatch.setattr(module, "_validate", lambda *a: None)
+    for check in ("_validate", "_validate_quant"):
+        if hasattr(module, check):
+            monkeypatch.setattr(module, check, lambda *a: None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "CUDA_ROOTS", (str(tmp_path),))

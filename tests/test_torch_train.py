@@ -68,6 +68,37 @@ def test_es_cli_runs_on_cpu(k, capsys):
     assert {"final_loss", "wall_time"} <= set(summary)
 
 
+@pytest.mark.parametrize("flags,scored,bp", [
+    (["--pack", "--max-segments", "4", "--minibatch", "6"], 0.0, 18.0),
+    (["--quant-scores", "--quant-block", "16", "--minibatch", "2"], 1.0,
+     6.0)])
+def test_pack_and_quant_cli_run_on_cpu(flags, scored, bp, capsys):
+    """Packed token-level ES (the store holds documents, the sampler walks
+    rows; scoring rides the training forward) and serial ES over the int8
+    store."""
+    out = ttrain.main(["--arch", "qwen1.5-0.5b", "--method", "es",
+                       "--meta-batch", "4", "--seq-len", "32",
+                       "--n-samples", "48", "--max-steps", "3",
+                       "--device", "cpu", *flags])
+    losses = [r["loss"] for r in out["metrics"]]
+    assert len(losses) == 3 and np.all(np.isfinite(losses))
+    summary = json.loads(capsys.readouterr().out)
+    assert summary["steps"] == 3
+    assert summary["scoring_steps_total"] == 3 * scored
+    assert summary["bp_samples_total"] == bp
+
+
+def test_packed_trainer_sizes_store_by_documents():
+    tr = ttrain.Trainer(ttrain.TrainerConfig(
+        arch="qwen1.5-0.5b", device="cpu", pack=True, meta_batch=4,
+        minibatch=4, seq_len=32, n_samples=48, max_steps=1))
+    assert tr.doc_level and tr.tc.source == "packed"
+    assert tr.n_train == 48 == tr.state.scores.s.shape[0]
+    assert tr.planned_steps_per_epoch() == len(tr.ds) // 4 < 48 // 4
+    tr.train()
+    assert int(tr.state.scores.seen.sum()) > 4
+
+
 def test_default_device_raises_without_gpu():
     if ttrain.torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
@@ -75,8 +106,18 @@ def test_default_device_raises_without_gpu():
         ttrain.Trainer(ttrain.TrainerConfig(**COMMON))
 
 
+def test_cuda_rejects_max_segments_beyond_kernel():
+    """The segment-sum kernel holds at most MAX_SEGMENTS slots; a CUDA
+    trainer refuses more before it builds the model and the store."""
+    from repro_torch.kernels.segsum.ops import MAX_SEGMENTS
+    with pytest.raises(ValueError, match="--max-segments"):
+        ttrain.main(["--device", "cuda", "--pack", "--max-segments",
+                     str(MAX_SEGMENTS + 1)])
+
+
 @pytest.mark.parametrize("flags", [["--pipelined"], ["--shard-scores"],
-                                   ["--quant-scores"], ["--pack"],
+                                   ["--quant-scores", "--quant-wire"],
+                                   ["--source", "tokens"],
                                    ["--ckpt-dir", "x"], ["--method", "eswp"],
                                    ["--freq-schedule", "drift"]])
 def test_unported_flags_raise(flags):
