@@ -9,11 +9,15 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    ``nvcc`` per source, all started together; ctypes);
 2. ``device``: the card (``nvidia-smi`` name and power limit, torch's name);
 3. ``check`` each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes and at ragged shapes, with duplicate, -1 and
-   out-of-range ids, a warm residual ring and ring slots >= R;
+   the main paths' shapes and at ragged shapes (the edges of the flash
+   kernel's 128-query tiles and the xent kernels' 128 x 256 tiles and
+   64-deep k slices; the two xent kernels also one by one), with
+   duplicate, -1 and out-of-range ids, a warm residual ring and ring
+   slots >= R;
 4. ``time`` each kernel, its plain version and one PyTorch library call
-   with CUDA events (the microsecond kernels also alone, under
-   torch.profiler), and compute each kernel's bound from its inputs;
+   with CUDA events, the kernels alone under torch.profiler (device ms;
+   the library call's too for xent and flash), and compute each kernel's
+   bound from its inputs;
 5. ``model``: the full-width scoring forward (kernels) against the training
    forward (plain autograd) on a small input;
 6. the three main paths on full-width qwen1.5-0.5b through the trainer's
@@ -65,7 +69,8 @@ STEPS = 4
 # launches per step of each path on qwen1.5-0.5b (24 layers); a kernel
 # left out of a path's dict must not launch there
 PER_STEP = {
-    # serial ES: one xent, one flash per layer, one f32 score update
+    # serial ES: one xent (one wrapper call: the partials and the combine
+    # kernel), one flash per layer, one f32 score update
     "train": {"fused_xent": 1, "gqa_flash_attention": 24,
               "fused_score_update": 1},
     # packed: one differentiated forward (plain attention and xent), one
@@ -156,18 +161,22 @@ def device_trace(fn, reps: int = 20) -> dict:
                              for e in rows) / 1e3 / reps}
 
 
-def kernel_device_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Mean device time of one launch of the CUDA kernel named ``kernel``
-    over ``reps`` calls of ``fn``, from torch.profiler. For kernels that
-    take microseconds the CUDA events of ``time_ms`` read the wrapper's
-    host path (checks, allocation, the ctypes call) while the device
-    idles; this reads the kernel alone."""
-    rows = [e for e in _device_rows(fn, reps) if kernel in e.key]
-    count = sum(e.count for e in rows)
-    if count != reps:
-        raise AssertionError(f"profiler saw {count} launches of {kernel}, "
-                             f"expected {reps}")
-    return sum(e.self_device_time_total for e in rows) / 1e3 / count
+def kernel_device_ms(fn, *kernels: str, reps: int = 20) -> float:
+    """Mean device time per call of ``fn`` of the CUDA kernels named
+    ``kernels`` (each launched once per call) over ``reps`` calls, from
+    torch.profiler. For kernels that take microseconds the CUDA events of
+    ``time_ms`` read the wrapper's host path (checks, allocation, the
+    ctypes call) while the device idles; this reads the kernels alone."""
+    all_rows = _device_rows(fn, reps)
+    total = 0.0
+    for kernel in kernels:
+        rows = [e for e in all_rows if kernel in e.key]
+        count = sum(e.count for e in rows)
+        if count != reps:
+            raise AssertionError(f"profiler saw {count} launches of "
+                                 f"{kernel}, expected {reps}")
+        total += sum(e.self_device_time_total for e in rows) / 1e3 / reps
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +188,8 @@ def phase_build() -> None:
     t0 = time.time()
     _build.library()
     resources = [ln.strip() for ln in _build.build_log.splitlines()
-                 if "registers" in ln or "spill" in ln or ln.startswith("==")]
+                 if "registers" in ln or "spill" in ln or ln.startswith("==")
+                 or "entry function" in ln]
     emit({"phase": "build", "seconds": round(time.time() - t0, 3),
           "ptxas": resources})
 
@@ -252,6 +262,34 @@ def check_xent(M: int, V: int, d: int) -> float:
         raise AssertionError(f"xent M={M} V={V} d={d}: max |err| {err} > "
                              f"{XENT_TOL}")
     return err
+
+
+def check_xent_parts(M: int, V: int, d: int) -> float:
+    """The card's two xent kernels one by one at the wrapper's split: the
+    partials kernel against ``xent_partials_ref`` (max and label logit
+    absolute, sumexp relative to the plain one), the combine kernel
+    against ``xent_combine_ref`` on the plain partials."""
+    from repro_torch.kernels.xent.ops import (_num_sms, vocab_split,
+                                              xent_combine, xent_partials)
+    from repro_torch.kernels.xent.ref import (xent_combine_ref,
+                                              xent_partials_ref)
+    h, w, labels = xent_inputs(M, V, d, seed=1)
+    n_split, span = vocab_split(M, V, _num_sms(0))
+    got = xent_partials(h, w, labels, span)
+    want = xent_partials_ref(h, w, labels, span)
+    nll = xent_combine(want)
+    want_nll = xent_combine_ref(want)
+    torch.cuda.synchronize()
+    errs = [(got[..., 0] - want[..., 0]).abs().max().item(),
+            (got[..., 1] / want[..., 1] - 1).abs().max().item(),
+            (got[..., 2] - want[..., 2]).abs().max().item(),
+            (nll - want_nll).abs().max().item()]
+    if got.shape != (M, n_split, 3) or not max(errs) <= XENT_TOL:
+        raise AssertionError(f"xent parts M={M} V={V} d={d} split "
+                             f"{n_split}x{span}: shape {tuple(got.shape)}, "
+                             f"|err| max/sumexp rel/label/combine {errs} "
+                             f"> {XENT_TOL}")
+    return max(errs)
 
 
 def check_flash(B: int, S: int, H: int, K: int, hd: int,
@@ -404,15 +442,32 @@ def check_quant(n: int, B: int, R: int, block: int) -> float:
 
 def phase_check() -> dict:
     errs = {
+        # the 128-row x 256-column tiles' ragged edges: M < 128, V < 256,
+        # d not a multiple of the 64-deep k slice, one live column in the
+        # last vocab tile (V = 257; the main shape leaves 128)
         "fused_xent": max(check_xent(16384, 151936, 1024),
                           check_xent(300, 777, 64),
-                          check_xent(200, 1000, 1024)),
+                          check_xent(200, 1000, 1024),
+                          check_xent(100, 1000, 1024),
+                          check_xent(300, 130, 64),
+                          check_xent(200, 1000, 1000),
+                          check_xent(300, 257, 128),
+                          check_xent_parts(1024, 151936, 1024),
+                          check_xent_parts(100, 257, 1000)),
+        # 128-query tiles: S = 1000 causal GQA, one kv tile, one query;
+        # every head dim
         "gqa_flash_attention": max(
             check_flash(32, 512, 16, 16, 64, True),
             check_flash(2, 200, 4, 4, 64, True),
             check_flash(2, 200, 4, 4, 64, False),
             check_flash(2, 256, 32, 8, 128, True),
-            check_flash(1, 128, 4, 2, 16, True)),
+            check_flash(1, 128, 4, 2, 16, True),
+            check_flash(2, 1000, 16, 2, 64, True),
+            check_flash(2, 64, 4, 4, 64, True),
+            check_flash(3, 1, 4, 2, 64, True),
+            check_flash(3, 1, 4, 2, 64, False),
+            check_flash(2, 512, 8, 8, 128, True),
+            check_flash(2, 300, 8, 4, 32, False)),
         "fused_score_update": max(
             check_score(1024, _perm(1024, 32)),
             check_score(64, [3, 3, -1, 70, 5, 3, 63, -7])),
@@ -464,8 +519,13 @@ def phase_time() -> dict:
     bms, by = bound(flops, nbytes)
     out["fused_xent"] = {
         "ms": time_ms(lambda: fused_xent(h, w, labels), 5),
+        # both kernels of one call: partials, then the fold over splits
+        "device_ms": kernel_device_ms(
+            lambda: fused_xent(h, w, labels), "xent_partials_kernel",
+            "xent_combine_kernel", reps=5),
         "plain_ms": time_ms(lambda: xent_ref(h, w, labels), 3),
         "library_ms": time_ms(xent_library, 3),
+        "library_device_ms": device_trace(xent_library, reps=3)["device_ms"],
         "bound_ms": bms, "bound_by": by,
         "shape": {"M": M, "V": V, "d": d}}
     del h, w, labels
@@ -480,9 +540,14 @@ def phase_time() -> dict:
     bms, by = bound(flops, nbytes)
     out["gqa_flash_attention"] = {
         "ms": time_ms(lambda: gqa_flash_attention(q, k, v), 20),
+        "device_ms": kernel_device_ms(lambda: gqa_flash_attention(q, k, v),
+                                      "flash_fwd_kernel"),
         "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v), 5),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), 20),
+        "library_device_ms": device_trace(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))["device_ms"],
         "bound_ms": bms, "bound_by": by,
         "shape": {"B": B, "S": S, "H": H, "K": K, "hd": hd}}
     del q, k, v, qt, kt, vt
@@ -878,7 +943,8 @@ def main() -> None:
             "max_abs_err": errs[name], "ms": t["ms"], "kernel_ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "device_ms": t.get("device_ms")})
+            "device_ms": t.get("device_ms"),
+            "library_device_ms": t.get("library_device_ms")})
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

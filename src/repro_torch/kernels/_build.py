@@ -15,6 +15,7 @@ fallback when ``nvcc`` is missing or a build fails.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,12 +24,14 @@ import subprocess
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 CUDA_ROOTS = ("/usr/local/cuda",)
 SOURCES = ("score_update.cu", "xent.cu", "flash_attn.cu", "segsum.cu",
            "quant_score_update.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("hopper.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,8 +42,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     # s, w, seen, ids, losses, n, B, b1, 1-b1, b2, 1-b2, stream
     "repro_score_update": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
-    # h, w, labels, nll, M, V, d, stream
-    "repro_xent_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # h, w, labels, partials, M, V, d, n_split, tiles_per_split, stream
+    "repro_xent_partials_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # partials, nll, M, n_split, stream
+    "repro_xent_combine": (_P, _P, _I, _I, _P),
     # q, k, v, o, B, S, H, K, hd, causal, scale, stream
     "repro_flash_attn_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # nll, seg, mask, sums, counts, B, S, M, stream
@@ -128,3 +133,12 @@ def check(err: int, name: str) -> None:
     """Raise if a C entry returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def on_device(device: torch.device):
+    """Context for a launch on ``device``: switches the calling thread's
+    current device only when it is another one (the switch costs
+    microseconds of host time per call)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import check, library
+from .._build import check, library, on_device
 from .ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -50,8 +50,8 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, S, H, hd = q.shape
     o = torch.empty_like(q)
     lib = library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with on_device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_flash_attn_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
             k.shape[2], hd, int(causal), 1.0 / hd ** 0.5, stream)

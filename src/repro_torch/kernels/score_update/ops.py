@@ -15,7 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .._build import check, library
+from .._build import check, library, on_device
 from .ref import quant_score_update_ref, score_update_ref
 
 
@@ -54,8 +54,8 @@ def fused_score_update(s: torch.Tensor, w: torch.Tensor, seen: torch.Tensor,
                                 beta2=beta2)
     _validate(s, w, seen, ids, losses)
     lib = library()
-    with torch.cuda.device(s.device):
-        stream = torch.cuda.current_stream(s.device).cuda_stream
+    with on_device(s.device):
+        stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_score_update(
             s.data_ptr(), w.data_ptr(), seen.data_ptr(), ids.data_ptr(),
             losses.data_ptr(), s.shape[0], ids.shape[0],
@@ -126,8 +126,8 @@ def fused_quant_score_update(s_q, w_q, seen_q, s_scale, w_scale, err_rows,
                                       block=block)
     _validate_quant(block, *args)
     lib = library()
-    with torch.cuda.device(s_q.device):
-        stream = torch.cuda.current_stream(s_q.device).cuda_stream
+    with on_device(s_q.device):
+        stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_quant_score_update(
             *(x.data_ptr() for x in args), s_q.shape[0], ids.shape[0],
             err_rows.shape[0], block,

@@ -16,7 +16,7 @@ from typing import Tuple
 
 import torch
 
-from .._build import check, library
+from .._build import check, library, on_device
 from .ref import segment_sum_ref
 
 MAX_SEGMENTS = 8   # slot accumulators the kernel keeps in registers
@@ -62,8 +62,8 @@ def segment_sum(nll: torch.Tensor, segment_ids: torch.Tensor,
                        device=nll.device)
     counts = torch.empty_like(sums)
     lib = library()
-    with torch.cuda.device(nll.device):
-        stream = torch.cuda.current_stream(nll.device).cuda_stream
+    with on_device(nll.device):
+        stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_segment_sum(nll.data_ptr(), segment_ids.data_ptr(),
                                     mask.data_ptr(), sums.data_ptr(),
                                     counts.data_ptr(), B, S, max_segments,

@@ -1,19 +1,52 @@
-"""Wrappers of the fused cross-entropy kernel (``csrc/xent.cu``).
+"""Wrappers of the fused cross-entropy kernels (``csrc/xent.cu``).
 
 Counterparts of ``repro/kernels/xent/ops.py:per_token_xent_fused`` and
 ``per_sample_xent_fused``, used by the port's no-grad scoring forward.
-A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
-the kernel or raises. No padding is needed: the kernel masks the ragged
-row and vocab edges itself, and it reads W as the (V, d) table.
+On the card one call is two kernels: ``xent_partials`` over (row tile,
+vocab split) blocks, then ``xent_combine`` over the splits; the split
+count comes from ``vocab_split``. A CPU tensor takes the plain version
+(``ref.py``); a CUDA tensor launches the kernels or raises. No padding is
+needed: the kernels mask the ragged row, vocab and depth edges
+themselves, and read W as the (V, d) table.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Tuple
 
 import torch
 
-from .._build import check, library
-from .ref import xent_ref
+from .._build import check, library, on_device
+from .ref import xent_combine_ref, xent_partials_ref, xent_ref
+
+BM, BN = 128, 256   # the partials kernel's row tile and vocab tile
+# a block's pipeline fill, in vocab tiles: its 4-stage ring of 64-deep k
+# slices against a tile's 16 slices at d = 1024
+FILL_TILES = 0.25
+MAX_SPLIT = 64
+
+
+def vocab_split(M: int, V: int, num_sms: int) -> Tuple[int, int]:
+    """(n_split, span): the vocab cut into n_split splits of ``span``
+    columns (a multiple of BN; the last split may be shorter, none is
+    empty). The grid is ceil(M / BM) x n_split blocks, one per SM at a
+    time; of the split counts up to MAX_SPLIT, take the one whose waves x
+    (tiles per split + FILL_TILES) is least, the fewest splits on a tie."""
+    row_tiles, vocab_tiles = -(-M // BM), -(-V // BN)
+    best = None
+    for want in range(1, min(vocab_tiles, MAX_SPLIT) + 1):
+        per = -(-vocab_tiles // want)
+        n = -(-vocab_tiles // per)
+        cost = math.ceil(row_tiles * n / num_sms) * (per + FILL_TILES)
+        if best is None or cost < best[0]:
+            best = (cost, n, per * BN)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _validate(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor) -> None:
@@ -43,25 +76,77 @@ def _validate(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor) -> None:
                              f"16-byte aligned")
 
 
+def _validate_combine(part: torch.Tensor) -> None:
+    if part.device.type != "cuda":
+        raise ValueError(f"xent_combine: partials on {part.device}, the "
+                         f"kernel takes CUDA tensors (CPU ones take the "
+                         f"plain version)")
+    if (part.dtype != torch.float32 or part.ndim != 3 or part.shape[2] != 3
+            or not part.is_contiguous()):
+        raise ValueError(f"xent_combine: needs contiguous (M, n_split, 3) "
+                         f"float32 partials, got {part.dtype} "
+                         f"{tuple(part.shape)}")
+
+
+def xent_partials(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                  span: int) -> torch.Tensor:
+    """h (M, d); w (V, d); labels (M,) -> (M, ceil(V / span), 3) f32
+    partials over vocab splits of ``span`` columns (a multiple of BN on
+    the card)."""
+    if h.device.type == "cpu":
+        return xent_partials_ref(h, w, labels, span)
+    _validate(h, w, labels)
+    if span <= 0 or span % BN:
+        raise ValueError(f"xent_partials: span {span} must be a positive "
+                         f"multiple of {BN}")
+    lib = library()
+    M, d = h.shape
+    V = w.shape[0]
+    n_split = -(-V // span)
+    part = torch.empty(M, n_split, 3, dtype=torch.float32, device=h.device)
+    with on_device(h.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_xent_partials_bf16(
+            h.data_ptr(), w.data_ptr(), labels.data_ptr(), part.data_ptr(),
+            M, V, d, n_split, span // BN, stream)
+    check(err, "repro_xent_partials_bf16")
+    xent_partials.launches += 1
+    return part
+
+
+def xent_combine(part: torch.Tensor) -> torch.Tensor:
+    """(M, n_split, 3) f32 partials -> nll (M,) f32, splits folded in
+    order."""
+    if part.device.type == "cpu":
+        return xent_combine_ref(part)
+    _validate_combine(part)
+    lib = library()
+    M, n_split, _ = part.shape
+    nll = torch.empty(M, dtype=torch.float32, device=part.device)
+    with on_device(part.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_xent_combine(part.data_ptr(), nll.data_ptr(), M,
+                                     n_split, stream)
+    check(err, "repro_xent_combine")
+    xent_combine.launches += 1
+    return nll
+
+
 def fused_xent(h: torch.Tensor, w: torch.Tensor,
                labels: torch.Tensor) -> torch.Tensor:
     """h (M, d); w (V, d); labels (M,) in [0, V) -> nll (M,) float32."""
     if h.device.type == "cpu":
         return xent_ref(h, w, labels)
     _validate(h, w, labels)
-    M, d = h.shape
-    nll = torch.empty(M, dtype=torch.float32, device=h.device)
-    lib = library()
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = lib.repro_xent_bf16(h.data_ptr(), w.data_ptr(),
-                                  labels.data_ptr(), nll.data_ptr(), M,
-                                  w.shape[0], d, stream)
-    check(err, "repro_xent_bf16")
+    library()  # builds (or raises) before the device is queried
+    _, span = vocab_split(h.shape[0], w.shape[0], _num_sms(h.device.index))
+    nll = xent_combine(xent_partials(h, w, labels, span))
     fused_xent.launches += 1
     return nll
 
 
+xent_partials.launches = 0
+xent_combine.launches = 0
 fused_xent.launches = 0
 
 

@@ -1,7 +1,8 @@
 """PyTorch port: the plain versions of the xent, flash-attention and
 score-update kernels against the JAX Pallas kernels (interpret mode) and
-their XLA oracles, and, for all five wrappers, the rule that a wrapper
-never runs the plain version for a tensor off the CPU. The segment-sum and
+their XLA oracles, the plain versions of the split xent kernels (partials,
+then the fold) against the one-pass nll, and, for every wrapper, the rule
+that a wrapper never runs the plain version for a tensor off the CPU. The segment-sum and
 quantized-update plain versions are held against JAX in
 test_torch_packing.py and test_torch_quant_store.py.
 
@@ -37,7 +38,11 @@ from repro_torch.kernels.score_update.ops import (fused_quant_score_update,
 from repro_torch.kernels.segsum import ops as segsum_ops
 from repro_torch.kernels.segsum.ops import segment_sum
 from repro_torch.kernels.xent import ops as xent_ops
-from repro_torch.kernels.xent.ops import fused_xent, per_sample_xent_fused
+from repro_torch.kernels.xent.ops import (fused_xent, per_sample_xent_fused,
+                                          vocab_split, xent_combine,
+                                          xent_partials)
+from repro_torch.kernels.xent.ref import (xent_combine_ref, xent_partials_ref,
+                                          xent_ref)
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -99,6 +104,45 @@ def test_xent_per_sample_masking():
     np.testing.assert_allclose(_np(ps), _np(ps_x), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(float(mean), float(mean_k), atol=1e-5)
     assert float(ps[1]) == 0.0
+
+
+@pytest.mark.parametrize("V", [500, 777])
+@pytest.mark.parametrize("n_split", [1, 3, 7])
+def test_xent_split_partials_fold_to_plain(V, n_split):
+    """The plain versions of the card's two kernels (per-split partials,
+    then the fold over splits) give the one-pass nll of ``xent_ref``
+    (held against JAX above): 1, 3 and more splits than the 256-column
+    vocab tiles (2 at V = 500, 4 at V = 777)."""
+    rng = np.random.default_rng(V + n_split)
+    M, d = 50, 64
+    h = torch.from_numpy(rng.normal(size=(M, d)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(V, d)) * 0.1).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, V, M).astype(np.int32))
+    span = -(-V // n_split)
+    part = xent_partials(h, w, labels, span)
+    assert part.shape == (M, n_split, 3) and part.dtype == torch.float32
+    got = xent_combine(part)
+    np.testing.assert_allclose(got.numpy(), xent_ref(h, w, labels).numpy(),
+                               atol=1e-5, rtol=1e-5)
+    want = xent_partials_ref(h, w, labels, span)
+    np.testing.assert_array_equal(part.numpy(), want.numpy())
+    np.testing.assert_array_equal(got.numpy(), xent_combine_ref(part).numpy())
+
+
+def test_vocab_split_covers_every_column_once():
+    """Splits are whole 256-column tiles, none empty, together exactly
+    [0, V); at the scoring forward's shape the grid fills 132 SMs."""
+    for M in (1, 100, 128, 1000, 16384):
+        for V in (1, 130, 256, 257, 777, 151936):
+            for sms in (1, 114, 132):
+                n, span = vocab_split(M, V, sms)
+                assert span % 256 == 0 and 1 <= n <= 64
+                cols = np.concatenate([
+                    np.arange(s * span, min((s + 1) * span, V))
+                    for s in range(n)])
+                np.testing.assert_array_equal(cols, np.arange(V))
+    n, _ = vocab_split(16384, 151936, 132)
+    assert 128 * n >= 132
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +270,13 @@ CALLS = {
     "xent": (xent_ops, "xent_ref", fused_xent, lambda: fused_xent(
         _meta((8, 64), torch.bfloat16), _meta((50, 64), torch.bfloat16),
         _meta((8,), torch.int32))),
+    "xent_partials": (xent_ops, "xent_partials_ref", xent_partials,
+                      lambda: xent_partials(
+                          _meta((8, 64), torch.bfloat16),
+                          _meta((50, 64), torch.bfloat16),
+                          _meta((8,), torch.int32), 256)),
+    "xent_combine": (xent_ops, "xent_combine_ref", xent_combine,
+                     lambda: xent_combine(_meta((8, 3, 3), torch.float32))),
     "flash": (flash_ops, "flash_attention_ref", gqa_flash_attention,
               lambda: gqa_flash_attention(
                   *(_meta((1, 16, 2, 64), torch.bfloat16) for _ in range(3)))),
@@ -263,7 +314,7 @@ def test_wrapper_off_cpu_raises_instead_of_plain(name, monkeypatch, tmp_path):
     monkeypatch.setattr(module, ref_name, _no_plain)
     with pytest.raises(ValueError, match="CUDA"):
         call()
-    for check in ("_validate", "_validate_quant"):
+    for check in ("_validate", "_validate_quant", "_validate_combine"):
         if hasattr(module, check):
             monkeypatch.setattr(module, check, lambda *a: None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
