@@ -2,22 +2,29 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --store-bench SRC   # store timings of another tree
 
 Phases, run in order, each of which raises on failure (nothing is caught):
 
-1. ``build`` the five CUDA kernels from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, all started together; ctypes);
+1. ``build`` the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+   per source, all started together; ctypes);
 2. ``device``: the card (``nvidia-smi`` name and power limit, torch's name);
 3. ``check`` each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at ragged shapes (the edges of the flash
    kernel's 128-query tiles and the xent kernels' 128 x 256 tiles and
-   64-deep k slices; the two xent kernels also one by one), with
-   duplicate, -1 and out-of-range ids, a warm residual ring and ring
-   slots >= R;
+   64-deep k slices; the two xent kernels also one by one); the f32 score
+   update with duplicate, -1 and out-of-range ids, one id, 512 ids over
+   64 rows and a batch above its 4,096-id chunk, plus the duplicate-id
+   pin; the three int8 store kernels (grow/re-code, ring slots, apply)
+   one by one, with a warm ring, slots >= R and growing and steady
+   scales, and the whole int8 store update against the plain versions
+   bitwise, over chains of updates with and without growth;
 4. ``time`` each kernel, its plain version and one PyTorch library call
    with CUDA events, the kernels alone under torch.profiler (device ms;
-   the library call's too for xent and flash), and compute each kernel's
-   bound from its inputs;
+   the library call's too), compute each kernel's bound from its inputs,
+   an empty kernel's device time (the floor of any launch), and the two
+   stores' update calls at n = 65,536 and 2^24 (device time, launches per
+   call, host clock, temporary memory);
 5. ``model``: the full-width scoring forward (kernels) against the training
    forward (plain autograd) on a small input;
 6. the three main paths on full-width qwen1.5-0.5b through the trainer's
@@ -35,7 +42,10 @@ It prints one JSON object per line; the line before the last is the
 ``kernels`` summary, and the last is the device line. It
 exits non-zero without a result when no CUDA device is present or the port
 is missing. It imports nothing of JAX and nothing of the JAX package
-``repro``.
+``repro``. ``--store-bench SRC`` runs only the store timings of phase 4,
+through the store API every tree of the port has, on the port under SRC
+(e.g. a parent commit unpacked with ``git archive``), for comparisons in
+one call.
 """
 from __future__ import annotations
 
@@ -76,8 +86,10 @@ PER_STEP = {
     # packed: one differentiated forward (plain attention and xent), one
     # segment sum, one f32 score update over the 64 document slots
     "train_packed": {"segment_sum": 1, "fused_score_update": 1},
-    # serial ES over the int8 store
+    # serial ES over the int8 store: the store update is the grow, the
+    # ring-slot and the apply kernel
     "train_quant": {"fused_xent": 1, "gqa_flash_attention": 24,
+                    "quant_grow_scales": 1, "quant_ring_slots": 1,
                     "fused_quant_score_update": 1},
 }
 
@@ -138,19 +150,32 @@ def wall_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+TRACE_PAD_S = 0.02
+
+
 def _device_rows(fn, reps: int) -> list:
     """torch.profiler's device rows (kernels and copies) over ``reps``
-    calls of ``fn``, after one untraced call."""
+    calls of ``fn``, after one call in the tracer's warm-up step. The
+    recorded window is padded with TRACE_PAD_S of idle host time on each
+    side: the tracer drops device events that fall outside its host-clock
+    window, and unpadded windows of a few microsecond launches lost some
+    of them on the H100."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(TRACE_PAD_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+    # device rows: kernels and copies (the step annotation is not work)
     return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total
+            and not e.key.startswith("ProfilerStep")]
 
 
 def device_trace(fn, reps: int = 20) -> dict:
@@ -166,17 +191,20 @@ def kernel_device_ms(fn, *kernels: str, reps: int = 20) -> float:
     ``kernels`` (each launched once per call) over ``reps`` calls, from
     torch.profiler. For kernels that take microseconds the CUDA events of
     ``time_ms`` read the wrapper's host path (checks, allocation, the
-    ctypes call) while the device idles; this reads the kernels alone."""
-    all_rows = _device_rows(fn, reps)
-    total = 0.0
-    for kernel in kernels:
-        rows = [e for e in all_rows if kernel in e.key]
-        count = sum(e.count for e in rows)
-        if count != reps:
-            raise AssertionError(f"profiler saw {count} launches of "
-                                 f"{kernel}, expected {reps}")
-        total += sum(e.self_device_time_total for e in rows) / 1e3 / reps
-    return total
+    ctypes call) while the device idles; this reads the kernels alone.
+    A trace that misses launches (the profiler has dropped some) is taken
+    again, at most twice more."""
+    for _ in range(3):
+        all_rows = _device_rows(fn, reps)
+        counts, total = [], 0.0
+        for kernel in kernels:
+            rows = [e for e in all_rows if kernel in e.key]
+            counts.append(sum(e.count for e in rows))
+            total += sum(e.self_device_time_total for e in rows) / 1e3 / reps
+        if all(c == reps for c in counts):
+            return total
+    raise AssertionError(f"profiler saw {counts} launches of {kernels}, "
+                         f"expected {reps} each")
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +278,13 @@ def _perm(n: int, k: int) -> list:
     return torch.randperm(n, generator=g)[:k].tolist()
 
 
+def _dup_ids(n: int, B: int, distinct: int, seed: int = 0) -> list:
+    """B ids drawn (with repeats) from ``distinct`` random rows of n."""
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.randperm(n, generator=g)[:distinct]
+    return rows[torch.randint(0, distinct, (B,), generator=g)].tolist()
+
+
 def check_xent(M: int, V: int, d: int) -> float:
     from repro_torch.kernels.xent.ops import fused_xent
     from repro_torch.kernels.xent.ref import xent_ref
@@ -320,8 +355,8 @@ def check_score(n: int, ids) -> float:
     err = max((a.float() - b.float()).abs().max().item()
               for a, b in zip(got[:3], want[:3]))
     if not err <= SCORE_TOL:
-        raise AssertionError(f"score_update n={n}: max |err| {err} > "
-                             f"{SCORE_TOL}")
+        raise AssertionError(f"score_update n={n} B={len(ids)}: max |err| "
+                             f"{err} > {SCORE_TOL}")
     return err
 
 
@@ -386,8 +421,9 @@ def quant_inputs(n: int, B: int, R: int, block: int, seed: int = 0):
     store warmed by one update of the same rows (so the ring holds their
     residuals): duplicate ids, -1 and out-of-range ids, and two slots
     forced to R (residual dropped)."""
-    from repro_torch.core.scores import (_q_grow_scales, _q_ring_slots,
-                                         make_store)
+    from repro_torch.core.scores import make_store
+    from repro_torch.kernels.score_update.ref import (quant_grow_scales_ref,
+                                                      quant_ring_slots_ref)
     st = make_store(None, quantize=True, block=block, residual_rows=R)
     qs = st.init_leaf(n, "cuda")
     g = _gen(seed)
@@ -403,13 +439,14 @@ def quant_inputs(n: int, B: int, R: int, block: int, seed: int = 0):
     ids[15] = n + 3
     losses = 3 * torch.rand(B, device="cuda", generator=g)
     mask = (ids >= 0) & (ids < n)
-    pos = torch.where(mask, ids, torch.zeros_like(ids))
-    mg = torch.where(mask, ids, torch.full_like(ids, -1))
-    _q_grow_scales(qs, pos, mask, mg, losses, 0.2, 0.9, block)
-    slots, seqs = _q_ring_slots(qs.err_seq, mask)
+    quant_grow_scales_ref(qs.s_q, qs.w_q, qs.s_scale, qs.w_scale,
+                          qs.err_rows, qs.err_seq, qs.err_s, ids, ids,
+                          losses, beta1=0.2, beta2=0.9, block=block)
+    slots, seqs = quant_ring_slots_ref(qs.err_seq, mask)
     slots[2] = R
     slots[9] = R + 5
-    lids = torch.where(mask, pos, torch.full_like(pos, -1))
+    mg = torch.where(mask, ids, torch.full_like(ids, -1))
+    lids = torch.where(mask, ids, torch.full_like(ids, -1))
     return [qs.s_q, qs.w_q, qs.seen_q, qs.s_scale, qs.w_scale, qs.err_rows,
             qs.err_seq, qs.err_s, qs.err_w, lids.contiguous(),
             mg.contiguous(), losses, slots, seqs]
@@ -440,6 +477,157 @@ def check_quant(n: int, B: int, R: int, block: int) -> float:
     return err
 
 
+QFIELDS = ("s_q", "w_q", "seen_q", "s_scale", "w_scale", "err_rows",
+           "err_seq", "err_s", "err_w")
+
+
+def _q_clone(qs):
+    from repro_torch.core.scores import QuantizedScores
+    return QuantizedScores(*(getattr(qs, f).clone() for f in QFIELDS))
+
+
+def _q_compare(what: str, got, want) -> float:
+    """Integer leaves and scales bitwise, residuals within
+    QUANT_RESID_TOL; returns the residuals' max |err|."""
+    err = 0.0
+    for f in QFIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        if f in ("err_s", "err_w"):
+            e = (a - b).abs().max().item()
+            err = max(err, e)
+            if not e <= QUANT_RESID_TOL:
+                raise AssertionError(f"{what}: {f} max |err| {e} > "
+                                     f"{QUANT_RESID_TOL}")
+        elif not torch.equal(a, b):
+            raise AssertionError(f"{what}: {f} differs")
+    return err
+
+
+def plain_store_update(qs, ids, losses, block: int) -> None:
+    """The int8 store update from the three plain versions, in place: the
+    whole update the kernels are held to."""
+    from repro_torch.kernels.score_update.ref import (
+        quant_grow_scales_ref, quant_ring_slots_ref, quant_score_update_ref)
+    n = qs.s_q.shape[0]
+    quant_grow_scales_ref(qs.s_q, qs.w_q, qs.s_scale, qs.w_scale, qs.err_rows,
+                          qs.err_seq, qs.err_s, ids, ids, losses, beta1=0.2,
+                          beta2=0.9, block=block)
+    slots, seqs = quant_ring_slots_ref(qs.err_seq, (ids >= 0) & (ids < n))
+    quant_score_update_ref(*(getattr(qs, f) for f in QFIELDS), ids, ids,
+                           losses, slots, seqs, beta1=0.2, beta2=0.9,
+                           block=block)
+
+
+def _batch_ids(rows: torch.Tensor, B: int, n: int, g,
+               repeats: bool) -> torch.Tensor:
+    """B ids drawn from ``rows`` (with repeats and a forced duplicate, or
+    distinct), two of them -1 and one out of range when B allows."""
+    if repeats:
+        ids = rows[torch.randint(0, rows.shape[0], (B,), device="cuda",
+                                 generator=g)].to(torch.int32)
+        ids[B // 3] = ids[0]
+    else:
+        ids = rows[torch.randperm(rows.shape[0], device="cuda",
+                                  generator=g)[:B]].to(torch.int32)
+    if B >= 8:
+        ids[B // 2] = -1
+        ids[B - 2] = n + 3
+        ids[B - 1] = -1
+    return ids.contiguous()
+
+
+def check_store(n: int, B: int, R: int, block: int, growth) -> float:
+    """The whole int8 store update on the card (grow, slot and apply
+    kernels through ``QuantizedStore.update``) against the plain versions
+    on a copy of the same store, bitwise, over ``len(growth)`` chained
+    updates. A hot set of 2B rows takes every update; the first update
+    covers it. A step marked True draws distinct ids and losses above
+    every earlier one (some scale grows), a step marked False draws
+    duplicates and tiny losses (none grows), and the marks are asserted
+    on the plain copy. (Duplicates in a growth step could clip: the grow
+    sizes the scales from pre-batch values, as the reference does, and
+    the next step would grow again.)"""
+    from repro_torch.core.scores import make_store
+    st = make_store(None, quantize=True, block=block, residual_rows=R)
+    a = st.init_leaf(n, "cuda")
+    g = _gen(n + B + R)
+    hot = torch.randperm(n, device="cuda", generator=g)[:2 * B]
+    err, top = 0.0, 1.0
+    for step, grows in enumerate(growth):
+        ids = hot.to(torch.int32) if step == 0 else _batch_ids(
+            hot, B, n, g, repeats=not grows)
+        if grows:
+            top *= 2.0
+            losses = top * (1.0 + torch.rand(ids.shape[0], device="cuda",
+                                              generator=g))
+        else:
+            losses = 0.01 * torch.rand(ids.shape[0], device="cuda",
+                                       generator=g)
+        b = _q_clone(a)
+        scales = (b.s_scale.clone(), b.w_scale.clone())
+        st.update(a, ids, losses, 0.2, 0.9)
+        plain_store_update(b, ids, losses, block)
+        torch.cuda.synchronize()
+        err = max(err, _q_compare(f"int8 store n={n} B={B} R={R} "
+                                  f"block={block} step {step}", a, b))
+        grew = not (torch.equal(scales[0], b.s_scale)
+                    and torch.equal(scales[1], b.w_scale))
+        if grew != grows:
+            raise AssertionError(f"int8 store step {step}: scales grew "
+                                 f"{grew}, the step was built for {grows}")
+        a = b       # the next step starts from one state on both sides
+    if (a.err_seq > 0).sum().item() < min(R, 2 * B):
+        raise AssertionError("int8 store check: the ring never filled")
+    return err
+
+
+def check_grow(n: int, B: int, R: int, block: int, scale: float) -> float:
+    """The grow kernel alone against its plain version on a warm store
+    (ring filled, duplicates, masked ids); ``scale`` sizes the losses
+    against the warm-up's (1 keeps the scales, > 1 grows them)."""
+    from repro_torch.kernels.score_update.ops import quant_grow_scales
+    from repro_torch.kernels.score_update.ref import quant_grow_scales_ref
+    args = quant_inputs(n, B, R, block, seed=1)
+    leaves = args[:9]
+    ids = args[9]
+    losses = scale * args[11]
+    got = [x.clone() for x in (*leaves[:2], *leaves[3:8])]
+    want = [x.clone() for x in got]
+    quant_grow_scales(*got, ids, args[10], losses, beta1=0.2, beta2=0.9,
+                      block=block)
+    quant_grow_scales_ref(*want, ids, args[10], losses, beta1=0.2,
+                          beta2=0.9, block=block)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("s_q", "w_q", "s_scale", "w_scale"), got, want):
+        if not torch.equal(x, y):
+            raise AssertionError(f"grow n={n} B={B} x{scale}: {name} "
+                                 f"differs")
+    return 0.0
+
+
+def check_slots(R: int, B: int, warm: int, n: int = 4096) -> float:
+    """The ring-slot kernel against its plain version: ``warm`` distinct
+    stamps (the rest 0) in random slots, a third of the batch masked."""
+    from repro_torch.kernels.score_update.ops import quant_ring_slots
+    from repro_torch.kernels.score_update.ref import quant_ring_slots_ref
+    g = _gen(R + B + warm)
+    seq = torch.zeros(R, dtype=torch.int32, device="cuda")
+    at = torch.randperm(R, device="cuda", generator=g)[:warm]
+    seq[at] = (1 + torch.randperm(3 * warm, device="cuda", generator=g)
+               [:warm]).to(torch.int32)
+    ids = torch.randint(0, n, (B,), device="cuda", generator=g,
+                        dtype=torch.int32)
+    ids[torch.rand(B, device="cuda", generator=g) < 0.33] = -1
+    got = quant_ring_slots(seq, ids, n)
+    want = quant_ring_slots_ref(seq, (ids >= 0) & (ids < n))
+    torch.cuda.synchronize()
+    for name, x, y in zip(("slots", "seqs"), got, want):
+        if not torch.equal(x, y):
+            raise AssertionError(f"ring slots R={R} B={B} warm={warm}: "
+                                 f"{name} differ")
+    return 0.0
+
+
 def phase_check() -> dict:
     errs = {
         # the 128-row x 256-column tiles' ragged edges: M < 128, V < 256,
@@ -468,15 +656,38 @@ def phase_check() -> dict:
             check_flash(3, 1, 4, 2, 64, False),
             check_flash(2, 512, 8, 8, 128, True),
             check_flash(2, 300, 8, 4, 32, False)),
+        # the path's shape, duplicates with -1 and out-of-range ids, one
+        # id, 512 ids over 64 rows, and a batch above the 4,096-id chunk
+        # with duplicates across the boundary
         "fused_score_update": max(
             check_score(1024, _perm(1024, 32)),
-            check_score(64, [3, 3, -1, 70, 5, 3, 63, -7])),
+            check_score(64, [3, 3, -1, 70, 5, 3, 63, -7]),
+            check_score(1 << 20, [12345]),
+            check_score(1 << 24, _dup_ids(1 << 24, 512, 64)),
+            check_score(1 << 16, _dup_ids(1 << 16, 5000, 300, seed=1))),
         "segment_sum": max(check_segsum(*packed_segsum_inputs(), 4),
                            check_segsum(*segsum_inputs(7, 300, 5), 5),
                            check_segsum(*segsum_inputs(16, 512, 8), 8)),
         "fused_quant_score_update": max(check_quant(65536, 32, 1024, 1024),
                                         check_quant(1000, 32, 16, 64)),
+        "quant_grow_scales": max(check_grow(65536, 32, 1024, 1024, 1.0),
+                                 check_grow(65536, 32, 1024, 1024, 50.0),
+                                 check_grow(1000, 100, 64, 16, 50.0)),
+        "quant_ring_slots": max(check_slots(1024, 32, 1024),
+                                check_slots(1024, 32, 0),
+                                check_slots(64, 100, 40),
+                                check_slots(16, 32, 16),
+                                check_slots(8192, 2000, 5000)),
     }
+    # the whole int8 store update (the three kernels) against the plain
+    # versions: the path's shape, B > R with duplicates and masked ids,
+    # and a chain of 8 updates with and without growth
+    errs["int8_store_update"] = max(
+        check_store(65536, 32, 1024, 1024, (True, False)),
+        check_store(1000, 100, 64, 16, (True, False)),
+        check_store(4096, 48, 256, 64,
+                    (True, False, False, True, False, True, False, False)),
+        check_store(1 << 16, 1500, 1024, 256, (True, False)))
     # the duplicate-id pin: sequential Eq. (3.1) ends at s = 2.75
     from repro_torch.kernels.score_update.ops import fused_score_update
     one = torch.ones(1, device="cuda")
@@ -501,8 +712,6 @@ def phase_time() -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn.ops import gqa_flash_attention
     from repro_torch.kernels.flash_attn.ref import flash_attention_ref
-    from repro_torch.kernels.score_update.ops import fused_score_update
-    from repro_torch.kernels.score_update.ref import score_update_ref
     from repro_torch.kernels.xent.ops import fused_xent
     from repro_torch.kernels.xent.ref import xent_ref
     out = {}
@@ -565,25 +774,192 @@ def phase_time() -> dict:
         s.index_put_((pos,), 0.9 * s_prev + 0.1 * losses)
         seen.index_put_((pos,), torch.ones_like(idt), accumulate=True)
 
-    # each id reads s, seen and writes s, w, seen; ids and losses read once
-    nbytes = Bs * (4 + 4) + Bs * (4 * 2 + 4 * 3)
-    bms, by = bound(0.0, nbytes)
     out["fused_score_update"] = {
-        "ms": time_ms(lambda: fused_score_update(
-            s, w_, seen, idt, losses, beta1=0.2, beta2=0.9), 50),
-        "device_ms": kernel_device_ms(lambda: fused_score_update(
-            s, w_, seen, idt, losses, beta1=0.2, beta2=0.9),
-            "::score_update_kernel"),
-        "plain_ms": time_ms(lambda: score_update_ref(
-            s, w_, seen, idt, losses, beta1=0.2, beta2=0.9), 10),
+        **time_score(n, ids),
         "library_ms": time_ms(score_library, 50),
-        "bound_ms": bms, "bound_by": by,
-        "shape": {"n": n, "B": Bs}}
+        "library_device_ms": device_trace(score_library)["device_ms"],
+        # one B = 512 batch over 64 rows of a 2^24-row store, one id, and
+        # one full 4,096-id chunk
+        "at": {"n2^24_B512_dup64": time_score(1 << 24,
+                                              _dup_ids(1 << 24, 512, 64)),
+               "n2^24_B1": time_score(1 << 24, [12345]),
+               "n2^24_B4096": time_score(1 << 24, _perm(1 << 24, 4096))}}
+    del s, w_, seen, idt, losses
+    torch.cuda.empty_cache()
 
     out["segment_sum"] = time_segsum()
     out["fused_quant_score_update"] = time_quant()
+    out["quant_grow_scales"] = time_grow(65536)
+    out["quant_grow_scales"]["at"] = {"n2^24": time_grow(1 << 24)}
+    out["quant_ring_slots"] = time_slots()
     emit({"phase": "time", "kernels": out,
+          # the floor of any launch: an empty kernel's device time
+          "empty_launch_device_ms": empty_launch_device_ms(),
+          "store_update": store_timings(),
           "card": smi_line()})
+    return out
+
+
+def empty_launch_device_ms() -> float:
+    from repro_torch.kernels.score_update.ops import empty_launch
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return kernel_device_ms(lambda: empty_launch(dev), "empty_kernel",
+                            reps=50)
+
+
+def time_score(n: int, ids) -> dict:
+    """The f32 update kernel at one shape: event and device ms, the plain
+    version's ms (events) and the bound from this run's ids."""
+    from repro_torch.kernels.score_update.ops import fused_score_update
+    from repro_torch.kernels.score_update.ref import score_update_ref
+    s, w, seen, idt, losses = score_inputs(n, ids)
+
+    def kernel():
+        return fused_score_update(s, w, seen, idt, losses, beta1=0.2,
+                                  beta2=0.9)
+
+    # ids and losses read once; per distinct in-range id s and seen read,
+    # s, w and seen written
+    valid = idt[(idt >= 0) & (idt < n)]
+    distinct = int(torch.unique(valid).numel())
+    bms, by = bound(0.0, idt.shape[0] * 8 + distinct * (2 * 4 + 3 * 4))
+    return {"ms": time_ms(kernel, 50),
+            "device_ms": kernel_device_ms(kernel, "::score_update_kernel"),
+            "launches_per_call": device_trace(kernel)["launches_per_call"],
+            "plain_ms": time_ms(lambda: score_update_ref(
+                s, w, seen, idt, losses, beta1=0.2, beta2=0.9), 3),
+            "bound_ms": bms, "bound_by": by,
+            "shape": {"n": n, "B": idt.shape[0], "distinct": distinct}}
+
+
+def time_grow(n: int, B: int = 32, R: int = 1024, block: int = 1024) -> dict:
+    """The grow kernel at path B's shapes: steady (the losses the store's
+    scales already fit: nothing grows, nothing is re-coded) and growing
+    (the scales put back before each call, so every touched block grows
+    and is re-coded), its plain version, and the bound from the steady
+    run's data."""
+    from repro_torch.kernels.score_update.ops import quant_grow_scales
+    from repro_torch.kernels.score_update.ref import quant_grow_scales_ref
+    args = quant_inputs(n, B, R, block)
+    leaves = [args[i] for i in (0, 1, 3, 4, 5, 6, 7)]
+    ids, gids, losses = args[9], args[10], args[11]
+
+    def kernel(x=losses):
+        return quant_grow_scales(*leaves, ids, gids, x, beta1=0.2,
+                                 beta2=0.9, block=block)
+
+    kernel()                       # fits the scales to these losses
+    s0, w0 = leaves[2].clone(), leaves[3].clone()
+    big = 50 * losses
+
+    def growing():
+        leaves[2].copy_(s0)
+        leaves[3].copy_(w0)
+        return kernel(big)
+
+    valid = ids[ids >= 0]
+    blocks = int(torch.unique(valid // block).numel())
+    hits = int(torch.isin(gids[ids >= 0], args[5]).sum())
+    # ring ids and stamps read once, the batch's three (B,) inputs, per
+    # valid id its s code and per touched block its two scales read
+    nbytes = R * 8 + B * 12 + valid.numel() + blocks * 8 + hits * 4
+    bms, by = bound(12.0 * valid.numel(), nbytes, PEAK_F32_FLOPS)
+    return {"ms": time_ms(kernel, 50),
+            "device_ms": kernel_device_ms(kernel, "quant_grow_kernel"),
+            "growing_device_ms": kernel_device_ms(growing,
+                                                  "quant_grow_kernel"),
+            "plain_ms": time_ms(lambda: quant_grow_scales_ref(
+                *leaves, ids, gids, losses, beta1=0.2, beta2=0.9,
+                block=block), 10),
+            "plain_device_ms": device_trace(lambda: quant_grow_scales_ref(
+                *leaves, ids, gids, losses, beta1=0.2, beta2=0.9,
+                block=block), reps=5)["device_ms"],
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "shape": {"n": n, "B": B, "R": R, "block": block,
+                      "touched_blocks": blocks, "ring_hits": hits}}
+
+
+def time_slots(B: int = 32, R: int = 1024) -> dict:
+    """The ring-slot kernel at path B's shapes on a full ring."""
+    from repro_torch.kernels.score_update.ops import quant_ring_slots
+    from repro_torch.kernels.score_update.ref import quant_ring_slots_ref
+    g = _gen(7)
+    seq = (1 + torch.randperm(4 * R, device="cuda", generator=g)[:R]
+           ).to(torch.int32)
+    ids = torch.randint(0, 65536, (B,), device="cuda", generator=g,
+                        dtype=torch.int32)
+    mask = (ids >= 0) & (ids < 65536)
+    # stamps and ids read once, slots and stamps written once
+    bms, by = bound(0.0, R * 4 + B * 4 + B * 8)
+    return {"ms": time_ms(lambda: quant_ring_slots(seq, ids, 65536), 50),
+            "device_ms": kernel_device_ms(
+                lambda: quant_ring_slots(seq, ids, 65536),
+                "quant_ring_slots_kernel"),
+            "plain_ms": time_ms(lambda: quant_ring_slots_ref(seq, mask), 20),
+            "plain_device_ms": device_trace(
+                lambda: quant_ring_slots_ref(seq, mask))["device_ms"],
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "shape": {"B": B, "R": R}}
+
+
+def store_timings() -> dict:
+    """Both stores' update calls through the store API that every tree of
+    the port has (``make_store``, ``update``, ``fused_score_update``), so
+    ``--store-bench`` times another tree's port the same way: the int8
+    update at B = 32, R = 1,024, block 1,024 in the steady state (the
+    scales already fit) at n = 65,536 and 2^24, with its device time and
+    launches per call, the apply kernel's share, the host clock, and the
+    device memory it takes beyond the store; the f32 kernel at the path's
+    shape and at B = 512 over 64 rows of 2^24."""
+    from repro_torch.core.scores import make_store
+    from repro_torch.kernels.score_update.ops import fused_score_update
+    out = {}
+    for n in (65536, 1 << 24):
+        st = make_store(None, quantize=True, block=1024)
+        qs = st.init_leaf(n, "cuda")
+        g = _gen(11)
+        ids = torch.randperm(n, device="cuda", generator=g)[:32].to(
+            torch.int32)
+        st.update(qs, ids, torch.full((32,), 100.0, device="cuda"), 0.2, 0.9)
+        losses = 3 * torch.rand(32, device="cuda", generator=g)
+        scales = qs.s_scale.clone(), qs.w_scale.clone()
+
+        def update():
+            return st.update(qs, ids, losses, 0.2, 0.9)
+
+        trace = device_trace(update)
+        if not (torch.equal(scales[0], qs.s_scale)
+                and torch.equal(scales[1], qs.w_scale)):
+            raise AssertionError("store timing: a scale grew")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        update()
+        torch.cuda.synchronize()
+        out[f"int8_update_n{n}"] = {
+            "device_ms": trace["device_ms"],
+            "launches_per_call": trace["launches_per_call"],
+            "apply_kernel_device_ms": kernel_device_ms(
+                update, "quant_score_update_kernel"),
+            "ms": time_ms(update, 50),
+            "host_ms": wall_ms(update, 50, warmup=2),
+            "temp_bytes": torch.cuda.max_memory_allocated() - base}
+        del st, qs
+        torch.cuda.empty_cache()
+    for name, n, ids in (("f32_n1024_B32", 1024, _perm(1024, 32)),
+                         ("f32_n2^24_B512_dup64", 1 << 24,
+                          _dup_ids(1 << 24, 512, 64))):
+        s, w, seen, idt, losses = score_inputs(n, ids)
+
+        def f32():
+            return fused_score_update(s, w, seen, idt, losses, beta1=0.2,
+                                      beta2=0.9)
+
+        out[name] = {"device_ms": kernel_device_ms(f32,
+                                                   "::score_update_kernel"),
+                     "ms": time_ms(f32, 50)}
+        del s, w, seen
+        torch.cuda.empty_cache()
     return out
 
 
@@ -597,9 +973,14 @@ def time_segsum() -> dict:
     live = mask & (seg >= 1) & (seg <= M)
     col = torch.where(live, seg, torch.zeros_like(seg)).long()
 
+    pair = torch.stack([nll * live, live.to(torch.float32)], dim=-1)
+    col2 = col[..., None].expand(B, S, 2)
+
     def library():
-        # one scatter_add_ into M+1 slots (slot 0 takes the dead tokens)
-        return torch.zeros(B, M + 1, device="cuda").scatter_add_(1, col, nll)
+        # sums and counts in one scatter_add_ of the stacked (nll * live,
+        # live) pair into M+1 slots (slot 0 takes the dead tokens)
+        return torch.zeros(B, M + 1, 2, device="cuda").scatter_add_(
+            1, col2, pair)
 
     # a float add and an int add per live token; nll, seg, mask read once,
     # sums and counts written once
@@ -615,6 +996,7 @@ def time_segsum() -> dict:
         "plain_ms": time_ms(lambda: segment_sum_ref(nll, seg, mask,
                                                     max_segments=M), 20),
         "library_ms": time_ms(library, 50),
+        "library_device_ms": device_trace(library)["device_ms"],
         "bound_ms": bms, "bound_by": by,
         "shape": {"B": B, "S": S, "M": M}}
 
@@ -655,6 +1037,7 @@ def time_quant() -> dict:
         "plain_ms": time_ms(lambda: quant_score_update_ref(
             *args, beta1=0.2, beta2=0.9, block=block), 3),
         "library_ms": time_ms(library, 20),
+        "library_device_ms": device_trace(library)["device_ms"],
         "bound_ms": bms, "bound_by": by,
         "shape": {"n": n, "B": B, "R": R, "block": block,
                   "valid": n_valid, "ring_hits": hits, "ring_writes": writes}}
@@ -677,20 +1060,31 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/csrc/quant_score_update.cu",
         "replaces": "src/repro/kernels/score_update/score_update.py:186"},
+    # the XLA prologue of the reference's int8 update (no Pallas kernel of
+    # its own), which feeds the kernel at score_update.py:186
+    "quant_grow_scales": {
+        "route": "cuda", "source": "src/repro_torch/csrc/quant_prologue.cu",
+        "replaces": "src/repro/core/scores.py:717"},
+    "quant_ring_slots": {
+        "route": "cuda", "source": "src/repro_torch/csrc/quant_prologue.cu",
+        "replaces": "src/repro/core/scores.py:752"},
 }
 
 
 def _wrappers() -> dict:
     from repro_torch.kernels.flash_attn.ops import gqa_flash_attention
     from repro_torch.kernels.score_update.ops import (
-        fused_quant_score_update, fused_score_update)
+        fused_quant_score_update, fused_score_update, quant_grow_scales,
+        quant_ring_slots)
     from repro_torch.kernels.segsum.ops import segment_sum
     from repro_torch.kernels.xent.ops import fused_xent
     return {"fused_score_update": fused_score_update,
             "fused_xent": fused_xent,
             "gqa_flash_attention": gqa_flash_attention,
             "segment_sum": segment_sum,
-            "fused_quant_score_update": fused_quant_score_update}
+            "fused_quant_score_update": fused_quant_score_update,
+            "quant_grow_scales": quant_grow_scales,
+            "quant_ring_slots": quant_ring_slots}
 
 
 # ---------------------------------------------------------------------------
@@ -850,8 +1244,9 @@ def phase_legs_packed() -> None:
     n = 65,536, and the kernels each launches per call, under
     torch.profiler."""
     from repro_torch.core.engine import _value_and_grad
-    from repro_torch.core.scores import (_q_grow_scales, _q_ring_slots,
-                                         make_store)
+    from repro_torch.core.scores import make_store
+    from repro_torch.kernels.score_update.ops import (quant_grow_scales,
+                                                      quant_ring_slots)
     from repro_torch.kernels.segsum.ops import segment_sum
     from repro_torch.models.transformer import lm_per_segment_loss
     from repro_torch.optim.adamw import apply_updates
@@ -895,11 +1290,12 @@ def phase_legs_packed() -> None:
     f32, quant = make_store(None), make_store(None, quantize=True,
                                               block=block)
     fs, qs = f32.init_leaf(n, "cuda"), quant.init_leaf(n, "cuda")
-    mask = torch.ones(B, dtype=torch.bool, device="cuda")
 
     def prologue():
-        _q_grow_scales(qs, sid, mask, sid, sl, 0.2, 0.9, block)
-        return _q_ring_slots(qs.err_seq, mask)
+        quant_grow_scales(qs.s_q, qs.w_q, qs.s_scale, qs.w_scale,
+                          qs.err_rows, qs.err_seq, qs.err_s, sid, sid, sl,
+                          beta1=0.2, beta2=0.9, block=block)
+        return quant_ring_slots(qs.err_seq, sid, n)
 
     store = {
         "f32_update": lambda: f32.update(fs, sid, sl, 0.2, 0.9),
@@ -917,11 +1313,28 @@ def phase_legs_packed() -> None:
           "card": smi_line()})
 
 
+def store_bench(src: str) -> None:
+    """``--store-bench SRC``: only ``store_timings``, on the port found
+    under SRC (another tree's ``src``, e.g. a parent commit unpacked with
+    ``git archive``), which builds its own kernels from its own sources."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    import repro_torch
+    phase_device()
+    emit({"phase": "store_bench", "src": src,
+          "port": str(Path(repro_torch.__file__).parent),
+          "timings": store_timings(), "card": smi_line()})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--store-bench"] and len(sys.argv) == 3:
+        store_bench(sys.argv[2])
+        return
+    if len(sys.argv) > 1:
+        sys.exit("usage: chip_smoke.py [--store-bench SRC]")
     phase_build()
     phase_device()
     errs = phase_check()

@@ -18,7 +18,9 @@ from typing import Optional, Tuple, Union
 import torch
 
 from ..kernels.score_update.ops import (fused_quant_score_update,
-                                        fused_score_update)
+                                        fused_score_update,
+                                        quant_grow_scales, quant_ring_slots)
+from ..kernels.score_update.ref import q_gather_1d as _q_gather_1d
 
 
 @dataclasses.dataclass
@@ -149,73 +151,6 @@ def _q_init_leaf(rows: int, n_blocks: int, ring: int,
         err_w=full((ring,), 0.0, torch.float32))
 
 
-def _q_gather_1d(q: torch.Tensor, scales: torch.Tensor, block: int,
-                 err_rows: torch.Tensor, err_seq: torch.Tensor,
-                 err_val: torch.Tensor, pos: torch.Tensor,
-                 gids: torch.Tensor) -> torch.Tensor:
-    """Dequantized values of local rows ``pos``, corrected by the NEWEST
-    ring residual whose global id matches ``gids`` (-1 never matches;
-    ``argmax`` takes the lowest index among equal stamps, as JAX's)."""
-    pos = pos.long()
-    deq = q[pos].to(torch.float32) * scales[pos // block]
-    hit = err_rows[None, :] == gids[:, None]                 # (B, R)
-    stamped = torch.where(hit, err_seq[None, :], torch.zeros_like(err_seq))
-    newest = torch.argmax(stamped, dim=1)
-    has = stamped.max(dim=1).values > 0
-    zero = torch.zeros((), dtype=torch.float32, device=q.device)
-    return deq + torch.where(has, err_val[newest], zero)
-
-
-def _q_grow_scales(qs: QuantizedScores, pos: torch.Tensor,
-                   mask: torch.Tensor, gids: torch.Tensor,
-                   losses: torch.Tensor, beta1: float, beta2: float,
-                   block: int) -> None:
-    """Grow the touched blocks' scales to fit the incoming Eq. (3.1)
-    values (grow-only) and re-code the stored int8 onto the new grid, in
-    place. The re-code runs every step: a block whose scale did not grow
-    has ratio 1 and re-codes exactly, and no host sync decides whether
-    any block grew (the reference's ``lax.cond``)."""
-    s_prev = _q_gather_1d(qs.s_q, qs.s_scale, block, qs.err_rows,
-                          qs.err_seq, qs.err_s, pos, gids)
-    w_new = weights_from_prev(s_prev, losses, beta1)
-    s_new = beta2 * s_prev + (1.0 - beta2) * losses
-    blk = pos.long() // block
-    zero = torch.zeros((), dtype=torch.float32, device=pos.device)
-    n = qs.s_q.shape[0]
-    for q, scale, v in ((qs.s_q, qs.s_scale, s_new),
-                        (qs.w_q, qs.w_scale, w_new)):
-        need = torch.zeros_like(scale).scatter_reduce(
-            0, blk, torch.where(mask, v.abs(), zero) / _QMAX, "amax")
-        new = torch.maximum(scale, need)
-        ratio = (scale / new).repeat_interleave(block)[:n]   # <= 1
-        q.copy_(torch.round(q.to(torch.float32) * ratio).to(torch.int8))
-        scale.copy_(new)
-
-
-def _q_ring_slots(err_seq: torch.Tensor, mask: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Ring slots and recency stamps for a batch: the oldest slots are
-    recycled, owned entries take the OLDEST of them (masked entries draw
-    the sentinel R and the newer candidates, and their writes drop), and
-    stamps grow with batch position so duplicates resolve last-wins. Both
-    sorts are stable, as ``jnp.argsort``."""
-    B, R = mask.shape[0], err_seq.shape[0]
-    k = min(B, R)
-    dev = err_seq.device
-    oldest = torch.argsort(err_seq, stable=True).to(torch.int32)
-    base = err_seq.max() + 1
-    perm = torch.argsort(mask.to(torch.int32), stable=True)
-    by_rank_slot = torch.cat([
-        torch.full((B - k,), R, dtype=torch.int32, device=dev),
-        oldest[:k].flip(0)])
-    by_rank_seq = base + torch.arange(B, dtype=torch.int32, device=dev)
-    slots = torch.empty(B, dtype=torch.int32, device=dev)
-    seqs = torch.empty(B, dtype=torch.int32, device=dev)
-    slots[perm] = by_rank_slot
-    seqs[perm] = by_rank_seq
-    return slots, seqs
-
-
 def _q_apply_fixed(qs: QuantizedScores, pos: torch.Tensor,
                    mask: torch.Tensor, gids: torch.Tensor,
                    losses: torch.Tensor, beta1: float, beta2: float,
@@ -257,25 +192,30 @@ def _q_update_local(qs: QuantizedScores, local_ids: torch.Tensor,
                     gids: torch.Tensor, losses: torch.Tensor, beta1: float,
                     beta2: float, block: int,
                     use_kernel: bool) -> QuantizedScores:
-    """One full update, in place: mask out-of-range rows, grow the scales,
-    assign ring slots, then apply through the kernel (sequential) or the
-    scatter form."""
+    """One full update, in place: grow the scales (and re-code the blocks
+    that grew), assign ring slots, then apply through the kernel
+    (sequential) or the scatter form. Rows outside [0, n) are masked. On a
+    CUDA store the grow, the slots and the kernel apply are one launch
+    each and nothing here is O(n); the scatter form stays PyTorch."""
     n = qs.s_q.shape[0]
-    losses = losses.to(torch.float32)
-    mask = (local_ids >= 0) & (local_ids < n)
-    pos = torch.where(mask, local_ids, torch.zeros_like(local_ids))
-    mgids = torch.where(mask, gids, torch.full_like(gids, -1))
-    _q_grow_scales(qs, pos, mask, mgids, losses, beta1, beta2, block)
-    slots, seqs = _q_ring_slots(qs.err_seq, mask)
+    ids = local_ids.to(torch.int32).contiguous()
+    gids = gids.to(torch.int32).contiguous()
+    losses = losses.to(torch.float32).contiguous()
+    quant_grow_scales(qs.s_q, qs.w_q, qs.s_scale, qs.w_scale, qs.err_rows,
+                      qs.err_seq, qs.err_s, ids, gids, losses, beta1=beta1,
+                      beta2=beta2, block=block)
+    slots, seqs = quant_ring_slots(qs.err_seq, ids, n)
     if use_kernel:
-        lids = torch.where(mask, pos, torch.full_like(pos, -1))
+        # out-of-range ids are skipped by the kernel; gids are read only
+        # for in-range ones
         fused_quant_score_update(
             qs.s_q, qs.w_q, qs.seen_q, qs.s_scale, qs.w_scale, qs.err_rows,
-            qs.err_seq, qs.err_s, qs.err_w,
-            lids.to(torch.int32).contiguous(),
-            mgids.to(torch.int32).contiguous(), losses.contiguous(),
-            slots, seqs, beta1=beta1, beta2=beta2, block=block)
+            qs.err_seq, qs.err_s, qs.err_w, ids, gids, losses, slots, seqs,
+            beta1=beta1, beta2=beta2, block=block)
         return qs
+    mask = (ids >= 0) & (ids < n)
+    pos = torch.where(mask, ids, torch.zeros_like(ids))
+    mgids = torch.where(mask, gids, torch.full_like(gids, -1))
     return _q_apply_fixed(qs, pos, mask, mgids, losses, beta1, beta2, block,
                           slots, seqs)
 

@@ -30,8 +30,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 CUDA_ROOTS = ("/usr/local/cuda",)
 SOURCES = ("score_update.cu", "xent.cu", "flash_attn.cu", "segsum.cu",
-           "quant_score_update.cu")
-HEADERS = ("hopper.cuh",)
+           "quant_score_update.cu", "quant_prologue.cu")
+HEADERS = ("hopper.cuh", "block_sort.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -55,6 +55,14 @@ SIGNATURES = {
     # stream
     "repro_quant_score_update": (_P,) * 14 + (_I, _I, _I, _I, _F, _F, _F, _F,
                                               _P),
+    # s_q, w_q, s_scale, w_scale, err_rows, err_seq, err_s, ids, gids,
+    # losses, n, B, R, block, b1, 1-b1, b2, 1-b2, stream
+    "repro_quant_grow_scales": (_P,) * 10 + (_I, _I, _I, _I, _F, _F, _F, _F,
+                                             _P),
+    # err_seq, ids, slots, seqs, n, B, R, stream
+    "repro_quant_ring_slots": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # stream
+    "repro_empty_launch": (_P,),
 }
 
 _lib: Optional[ctypes.CDLL] = None

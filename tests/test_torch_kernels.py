@@ -34,7 +34,10 @@ from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.kernels.flash_attn.ops import gqa_flash_attention
 from repro_torch.kernels.score_update import ops as score_ops
 from repro_torch.kernels.score_update.ops import (fused_quant_score_update,
-                                                  fused_score_update)
+                                                  fused_score_update,
+                                                  quant_grow_scales,
+                                                  quant_ring_slots)
+from repro_torch.kernels.score_update.ref import score_update_ref
 from repro_torch.kernels.segsum import ops as segsum_ops
 from repro_torch.kernels.segsum.ops import segment_sum
 from repro_torch.kernels.xent import ops as xent_ops
@@ -254,6 +257,37 @@ def test_score_update_plain_drops_negative_and_out_of_range_ids():
     np.testing.assert_array_equal(got[0].numpy()[untouched], s[untouched])
 
 
+def test_score_update_chunks_keep_sequence(monkeypatch):
+    """A batch above the kernel's chunk goes chunk by chunk, in order
+    (here 8 ids a chunk; on the CPU into the plain version): duplicates
+    split across chunk boundaries still apply in sequence, bitwise as one
+    plain pass and within 1e-6 of JAX's sequential kernel."""
+    n, B = 40, 50
+    s, w, seen, losses = _scores(n, B, 11)
+    ids = np.random.default_rng(2).integers(-2, n + 2, B).astype(np.int32)
+    ids[8] = ids[7]                  # across the first boundary
+    ids[30] = ids[17] = ids[3]       # three chunks
+    want = score_update_ref(*(torch.from_numpy(x.copy())
+                              for x in (s, w, seen, ids, losses)),
+                            beta1=0.2, beta2=0.9)
+    calls = []
+    monkeypatch.setattr(score_ops, "CHUNK", 8)
+    monkeypatch.setattr(score_ops, "score_update_ref",
+                        lambda *a, **k: calls.append(a[3].shape[0]) or
+                        score_update_ref(*a, **k))
+    got = fused_score_update(*(torch.from_numpy(x.copy())
+                               for x in (s, w, seen, ids, losses)),
+                             beta1=0.2, beta2=0.9)
+    assert calls == [8] * 6 + [2]
+    jax_got = make_store(None).update(
+        ESScores(s=jnp.asarray(s), w=jnp.asarray(w), seen=jnp.asarray(seen)),
+        jnp.asarray(ids), jnp.asarray(losses), 0.2, 0.9, fused=True,
+        interpret=True)
+    for g, x, j in zip(got, want, (jax_got.s, jax_got.w, jax_got.seen)):
+        np.testing.assert_array_equal(g.numpy(), x.numpy())
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # off the CPU a wrapper launches its kernel or raises
 # ---------------------------------------------------------------------------
@@ -301,6 +335,20 @@ CALLS = {
                                          torch.float32, torch.int32,
                                          torch.int32)),
             beta1=0.2, beta2=0.9, block=8)),
+    "quant_grow_scales": (
+        score_ops, "quant_grow_scales_ref", quant_grow_scales,
+        lambda: quant_grow_scales(
+            *(_meta((8,), torch.int8) for _ in range(2)),
+            *(_meta((1,), torch.float32) for _ in range(2)),
+            *(_meta((4,), dt) for dt in (torch.int32, torch.int32,
+                                         torch.float32)),
+            *(_meta((2,), dt) for dt in (torch.int32, torch.int32,
+                                         torch.float32)),
+            beta1=0.2, beta2=0.9, block=8)),
+    "quant_ring_slots": (
+        score_ops, "quant_ring_slots_ref", quant_ring_slots,
+        lambda: quant_ring_slots(_meta((4,), torch.int32),
+                                 _meta((2,), torch.int32), 8)),
 }
 
 
@@ -314,7 +362,8 @@ def test_wrapper_off_cpu_raises_instead_of_plain(name, monkeypatch, tmp_path):
     monkeypatch.setattr(module, ref_name, _no_plain)
     with pytest.raises(ValueError, match="CUDA"):
         call()
-    for check in ("_validate", "_validate_quant", "_validate_combine"):
+    for check in ("_validate", "_validate_quant", "_validate_combine",
+                  "_check_leaves"):
         if hasattr(module, check):
             monkeypatch.setattr(module, check, lambda *a: None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)

@@ -6,7 +6,8 @@ is the reference kernel test's (tests/test_kernels.py): integer leaves
 (codes, seen, ring ids and stamps) and scales bitwise equal, the float32
 ring residuals within atol 1e-7.
 
-* ``_q_ring_slots`` against JAX's (exact);
+* the ring-slot assignment's plain version against JAX's
+  ``_q_ring_slots`` (exact);
 * the store's update, plain sequential (the CPU path of the kernel
   wrapper) and scatter form (``fused=False``), against JAX's scatter
   ``_q_apply_fixed`` over a stream of unique-id batches;
@@ -14,7 +15,15 @@ ring residuals within atol 1e-7.
   interpret mode (the scatter form applies duplicates differently);
 * a 3-step ``--quant-scores`` trainer run (method ``order``: no selection
   noise) against the JAX trainer: losses rtol 1e-3 (test_torch_train's),
-  seen and ring ids exact, gathered scores within 1e-5.
+  seen and ring ids exact, gathered scores within 1e-5;
+* numpy emulations of the three CUDA kernels' decompositions (the grow
+  kernel's one owner per store block, re-coding only the blocks that
+  grew; the slot kernel's sort and rank formula; the apply kernel's
+  walk of each id's occurrences with the as-of-i ring rule) held bitwise
+  against the plain versions, which the kernels must equal on the card;
+* consecutive store updates against JAX's ``_q_update_local`` with no
+  scale growing and with exactly one block growing, the grow kernel's
+  emulation against JAX's full re-code on the same states.
 """
 import dataclasses
 
@@ -33,7 +42,11 @@ from repro.launch.train import TrainerConfig as JaxTrainerConfig
 from repro_torch.bridge import params_from_jax, scores_from_jax
 from repro_torch.configs import ModelConfig
 from repro_torch.core import scores as tscores
+from repro_torch.kernels.score_update import ops as score_ops
 from repro_torch.kernels.score_update.ops import fused_quant_score_update
+from repro_torch.kernels.score_update.ref import (quant_grow_scales_ref,
+                                                  quant_ring_slots_ref,
+                                                  quant_score_update_ref)
 from repro_torch.launch import train as ttrain
 
 B1, B2 = 0.2, 0.9
@@ -99,7 +112,7 @@ def test_ring_slots_match_jax(B, R, warm):
     seq = np.zeros(R, np.int32)
     seq[:min(warm, R)] = rng.permutation(np.arange(1, warm + 1))[:R]
     mask = rng.random(B) > 0.33
-    got = tscores._q_ring_slots(torch.from_numpy(seq), torch.from_numpy(mask))
+    got = quant_ring_slots_ref(torch.from_numpy(seq), torch.from_numpy(mask))
     want = jscores._q_ring_slots(jnp.asarray(seq), jnp.asarray(mask))
     for g, w in zip(got, want):
         assert g.dtype == torch.int32
@@ -211,3 +224,270 @@ def test_quant_trainer_matches_jax_trainer():
     want_sw = jt.score_store.gather(jq, jnp.asarray(ids))
     for g, w in zip(got_sw, want_sw):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' decompositions, emulated in numpy
+# ---------------------------------------------------------------------------
+
+F32 = np.float32
+INT_MAX = np.iinfo(np.int32).max
+
+
+def _eq31(s_prev, loss, b1=B1, b2=B2):
+    """Eq. (3.1) in float32 scalars, the kernels' operation order."""
+    w_new = F32(b1) * s_prev + F32(1.0 - b1) * loss
+    s_new = F32(b2) * s_prev + F32(1.0 - b2) * loss
+    return w_new, s_new
+
+
+def _newest(rows, seq, gid, valid=None):
+    """Index of the newest entry of ``gid`` (largest stamp > 0, lowest
+    index on a tie) among ``valid`` entries, or None."""
+    hit = (rows == gid) & (seq > 0)
+    if valid is not None:
+        hit &= valid
+    if not hit.any():
+        return None
+    stamped = np.where(hit, seq, 0)
+    return int(np.argmax(stamped))
+
+
+def _emulate_grow(leaves, ids, gids, losses, block):
+    """csrc/quant_prologue.cu:quant_grow_kernel: the first in-range
+    position of each store block owns it, folds its positions' needs from
+    the pre-batch store and re-codes the block only if a scale grew."""
+    s_q, w_q, s_scale, w_scale, rows, seq, es = (np.array(x, copy=True)
+                                                 for x in leaves)
+    n = s_q.shape[0]
+    valid = (ids >= 0) & (ids < n)
+    blks = np.where(valid, ids // block, -1)
+    for i in np.nonzero(valid)[0]:
+        blk = blks[i]
+        if (blks[:i] == blk).any():
+            continue
+        need_s = need_w = F32(0)
+        old_s, old_w = s_scale[blk], w_scale[blk]
+        for j in np.nonzero(blks == blk)[0]:
+            at = _newest(rows, seq, gids[j])
+            resid = es[at] if at is not None else F32(0)
+            s_prev = F32(s_q[ids[j]]) * old_s + resid
+            w_new, s_new = _eq31(s_prev, losses[j])
+            need_s = max(need_s, abs(s_new) / F32(127))
+            need_w = max(need_w, abs(w_new) / F32(127))
+        rows_of = slice(blk * block, min(n, (blk + 1) * block))
+        for q, scale, old, need in ((s_q, s_scale, old_s, need_s),
+                                    (w_q, w_scale, old_w, need_w)):
+            new = max(old, need)
+            if new > old:
+                q[rows_of] = np.rint(q[rows_of].astype(F32) * (old / new)
+                                     ).astype(np.int8)
+            scale[blk] = new
+    return s_q, w_q, s_scale, w_scale
+
+
+def _emulate_slots(err_seq, ids, n):
+    """csrc/quant_prologue.cu:quant_ring_slots_kernel: sort the unique
+    64-bit (stamp, index) keys, then each position's slot and stamp from
+    its rank (masked positions first, both groups in batch order)."""
+    R, B = err_seq.shape[0], ids.shape[0]
+    keys = np.sort((err_seq.astype(np.uint64) << np.uint64(32))
+                   | np.arange(R, dtype=np.uint64))
+    oldest = (keys & np.uint64(0xFFFFFFFF)).astype(np.int32)
+    k = min(B, R)
+    masked = ~((ids >= 0) & (ids < n))
+    before = np.concatenate([[0], np.cumsum(masked)[:-1]])
+    rank = np.where(masked, before, masked.sum() + np.arange(B) - before)
+    slots = np.where(rank < B - k, R, oldest[np.clip(B - 1 - rank, 0, R - 1)])
+    return slots.astype(np.int32), (err_seq.max() + 1 + rank).astype(np.int32)
+
+
+def _emulate_apply(leaves, ids, gids, losses, slots, seqs, block):
+    """csrc/quant_score_update.cu: the first occurrence of each id walks
+    its occurrences in batch order; a residual comes from the latest
+    earlier occurrence that wrote a slot < R, else from the pre-batch
+    ring snapshot among the slots no earlier position writes."""
+    (s_q, w_q, seen_q, s_scale, w_scale, rows, seq, es,
+     ew) = (np.array(x, copy=True) for x in leaves)
+    n, R, B = s_q.shape[0], rows.shape[0], ids.shape[0]
+    snap_rows, snap_seq, snap_es = rows.copy(), seq.copy(), es.copy()
+    valid = (ids >= 0) & (ids < n)
+    first_w = np.full(R, INT_MAX, np.int64)
+    for i in range(B):
+        if valid[i] and 0 <= slots[i] < R:
+            first_w[slots[i]] = min(first_w[slots[i]], i)
+    for i in np.nonzero(valid)[0]:
+        idx = ids[i]
+        if (ids[:i] == idx).any():
+            continue
+        blk = idx // block
+        ssc, wsc = s_scale[blk], w_scale[blk]
+        code_s, seen = int(s_q[idx]), int(seen_q[idx])
+        wrote, last_es = False, F32(0)
+        for p in np.nonzero(ids == idx)[0]:
+            if p < i:
+                continue
+            if wrote:
+                resid = last_es
+            else:
+                at = _newest(snap_rows, snap_seq, gids[p], first_w >= p)
+                resid = snap_es[at] if at is not None else F32(0)
+            s_prev = F32(code_s) * ssc + resid
+            w_new, s_new = _eq31(s_prev, losses[p])
+            q_s = np.clip(np.rint(s_new / ssc), -127, 127).astype(F32)
+            q_w = np.clip(np.rint(w_new / wsc), -127, 127).astype(F32)
+            code_s, code_w, seen = int(q_s), int(q_w), min(seen + 1, 127)
+            if 0 <= slots[p] < R:
+                rows[slots[p]], seq[slots[p]] = gids[p], seqs[p]
+                es[slots[p]] = s_new - q_s * ssc
+                ew[slots[p]] = w_new - q_w * wsc
+                wrote, last_es = True, es[slots[p]]
+        s_q[idx], w_q[idx], seen_q[idx] = code_s, code_w, seen
+    return s_q, w_q, seen_q, rows, seq, es, ew
+
+
+def _warm_port(n, block, R, steps, B, seed):
+    """A port store on the CPU advanced ``steps`` batches (duplicates
+    included), so the ring holds many rows and has wrapped."""
+    st = tscores.make_store(None, quantize=True, block=block,
+                            residual_rows=R)
+    qs = st.init_leaf(n, "cpu")
+    rng = np.random.default_rng(seed)
+    for _ in range(steps):
+        ids = rng.integers(0, n, B).astype(np.int32)
+        st.update(qs, torch.from_numpy(ids),
+                  torch.from_numpy(rng.uniform(0.1, 2.0, B).astype(F32)),
+                  B1, B2)
+    return st, qs, rng
+
+
+EMU_CASES = {
+    # name: (n, block, R, B, warm steps)
+    "duplicates": (256, 64, 96, 32, 3),
+    "masked": (256, 64, 96, 32, 3),
+    "b_gt_r": (1000, 16, 64, 100, 2),
+    "warm_wrapped_ring": (256, 64, 48, 40, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EMU_CASES))
+def test_kernel_decompositions_match_plain(case):
+    """Each kernel's per-position decomposition, emulated in numpy, equals
+    its plain (sequential) version bitwise, residuals included: the grow
+    on the pre-batch store, the slots on the grown store, the apply on
+    the store the two leave."""
+    n, block, R, B, warm = EMU_CASES[case]
+    _, qs, rng = _warm_port(n, block, R, warm, 48, seed=len(case))
+    assert int((qs.err_seq > 0).sum()) == R        # the ring has wrapped
+    if case == "warm_wrapped_ring":                 # rows the ring holds
+        ring = qs.err_rows.numpy()
+        ids = rng.choice(ring[ring >= 0], B).astype(np.int32)
+    else:
+        ids = rng.integers(0, n, B).astype(np.int32)
+    ids[5] = ids[9] = ids[2]                        # a triple
+    ids[20] = ids[11]
+    if case in ("masked", "b_gt_r"):
+        ids[::7] = -1
+        ids[3] = n + 5
+        ids[14] = ids[7]                            # masked duplicate
+    losses = rng.uniform(0.05, 3.0, B).astype(F32)
+    t_ids, t_losses = torch.from_numpy(ids), torch.from_numpy(losses)
+
+    grow_in = [getattr(qs, f).clone() for f in
+               ("s_q", "w_q", "s_scale", "w_scale", "err_rows", "err_seq",
+                "err_s")]
+    want = quant_grow_scales_ref(*grow_in, t_ids, t_ids, t_losses, beta1=B1,
+                                 beta2=B2, block=block)
+    got = _emulate_grow([getattr(qs, f).numpy() for f in
+                         ("s_q", "w_q", "s_scale", "w_scale", "err_rows",
+                          "err_seq", "err_s")], ids, ids, losses, block)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    qs.s_q, qs.w_q, qs.s_scale, qs.w_scale = want
+
+    slots, seqs = quant_ring_slots_ref(qs.err_seq, (t_ids >= 0) & (t_ids < n))
+    e_slots, e_seqs = _emulate_slots(qs.err_seq.numpy(), ids, n)
+    np.testing.assert_array_equal(e_slots, slots.numpy())
+    np.testing.assert_array_equal(e_seqs, seqs.numpy())
+    if case == "b_gt_r":
+        assert int((slots == R).sum()) == B - R     # dropped residuals
+
+    leaves = [getattr(qs, f) for f in QFIELDS]
+    emu = _emulate_apply([x.numpy() for x in leaves], ids, ids, losses,
+                         slots.numpy(), seqs.numpy(), block)
+    ref = quant_score_update_ref(*(x.clone() for x in leaves), t_ids, t_ids,
+                                 t_losses, slots, seqs, beta1=B1, beta2=B2,
+                                 block=block)
+    for name, e, r in zip(("s_q", "w_q", "seen_q", "err_rows", "err_seq",
+                           "err_s", "err_w"), emu, ref):
+        np.testing.assert_array_equal(e, r.numpy(), err_msg=name)
+
+
+def test_apply_chunks_match_one_pass(monkeypatch):
+    """The int8 wrapper's chunk loop (here 16 ids a chunk, on the CPU
+    into the plain version) gives the one-pass plain result."""
+    n, block, R, B = 256, 64, 96, 70
+    _, qs, rng = _warm_port(n, block, R, 2, 48, seed=7)
+    ids = torch.from_numpy(rng.integers(-3, n + 3, B).astype(np.int32))
+    ids[40] = ids[3]
+    losses = torch.from_numpy(rng.uniform(0.05, 3.0, B).astype(F32))
+    slots, seqs = quant_ring_slots_ref(qs.err_seq, (ids >= 0) & (ids < n))
+    leaves = [getattr(qs, f) for f in QFIELDS]
+    want = quant_score_update_ref(*(x.clone() for x in leaves), ids, ids,
+                                  losses, slots, seqs, beta1=B1, beta2=B2,
+                                  block=block)
+    calls = []
+    monkeypatch.setattr(score_ops, "CHUNK", 16)
+    monkeypatch.setattr(score_ops, "quant_score_update_ref",
+                        lambda *a, **k: calls.append(a[9].shape[0]) or
+                        quant_score_update_ref(*a, **k))
+    got = fused_quant_score_update(*(x.clone() for x in leaves), ids, ids,
+                                   losses, slots, seqs, beta1=B1, beta2=B2,
+                                   block=block)
+    assert calls == [16, 16, 16, 16, 6]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("growth", ["none", "one_block"])
+def test_update_steps_match_jax_update_local(growth):
+    """Three consecutive unique-id updates from a warm store against
+    JAX's ``_q_update_local`` (scatter form: the same for unique ids), with
+    no scale growing in any step, or with exactly one store block growing
+    in each. On each step's pre-batch state the grow kernel's emulation
+    (re-coding only the grown blocks) equals JAX's full re-code."""
+    n, block, R, B = 512, 64, 512, 24
+    st, qs, rng = _warm(n, block, R, steps=3)
+    tst = tscores.make_store(None, quantize=True, block=block,
+                             residual_rows=R)
+    tqs = _port(qs)
+    for _ in range(3):
+        ids = rng.choice(n, B, replace=False).astype(np.int32)
+        losses = rng.uniform(0.0, 0.05, B).astype(F32)
+        if growth == "one_block":
+            losses[0] = 400.0
+        pre = {f: np.array(getattr(qs, f)) for f in QFIELDS}
+        mask = jnp.ones(B, bool)
+        grown = jscores._q_grow_scales(qs, jnp.asarray(ids), mask,
+                                       jnp.asarray(ids), jnp.asarray(losses),
+                                       B1, B2, block)
+        emu = _emulate_grow([pre[f] for f in ("s_q", "w_q", "s_scale",
+                                              "w_scale", "err_rows",
+                                              "err_seq", "err_s")],
+                            ids, ids, losses, block)
+        for f, e in zip(("s_q", "w_q", "s_scale", "w_scale"), emu):
+            np.testing.assert_array_equal(e, np.asarray(getattr(grown, f)),
+                                          err_msg=f)
+        qs = jscores._q_update_local(qs, jnp.asarray(ids), jnp.asarray(ids),
+                                     jnp.asarray(losses), B1, B2, block,
+                                     False, None)
+        tst.update(tqs, torch.from_numpy(ids), torch.from_numpy(losses), B1,
+                   B2)
+        _assert_q_equal(tqs, qs)
+        changed = ((np.asarray(qs.s_scale) != pre["s_scale"])
+                   | (np.asarray(qs.w_scale) != pre["w_scale"]))
+        assert int(changed.sum()) == (1 if growth == "one_block" else 0)
+        if growth == "one_block":   # the re-code touched that block only
+            other = np.arange(n) // block != ids[0] // block
+            recoded = np.asarray(qs.s_q) != pre["s_q"]
+            assert not (recoded & other & ~np.isin(np.arange(n), ids)).any()
