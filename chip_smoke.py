@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --store-bench SRC   # store timings of another tree
+    python3 chip_smoke.py --segsum-bench SRC  # segment-sum timings of one
 
 Phases, run in order, each of which raises on failure (nothing is caught):
 
@@ -18,25 +19,33 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    pin; the three int8 store kernels (grow/re-code, ring slots, apply)
    one by one, with a warm ring, slots >= R and growing and steady
    scales, and the whole int8 store update against the plain versions
-   bitwise, over chains of updates with and without growth;
+   bitwise, over chains of updates with and without growth; the two
+   segment-sum kernels (forward and gradient) on path A's batch and on
+   random ids up to 32,771 tokens a row and 150 slots, unaligned pointers
+   and rows shorter than a vector, each case run twice and compared
+   bitwise (no atomics);
 4. ``time`` each kernel, its plain version and one PyTorch library call
    with CUDA events, the kernels alone under torch.profiler (device ms;
    the library call's too), compute each kernel's bound from its inputs,
    an empty kernel's device time (the floor of any launch), and the two
    stores' update calls at n = 65,536 and 2^24 (device time, launches per
-   call, host clock, temporary memory);
+   call, host clock, temporary memory); the segment sum, its gradient and
+   the autograd pair of the two at three shapes of 8,192 tokens (also the
+   wrappers' host time per call);
 5. ``model``: the full-width scoring forward (kernels) against the training
    forward (plain autograd) on a small input;
-6. the three main paths on full-width qwen1.5-0.5b through the trainer's
-   CLI entry point, 4 steps each, every launch count set to 0 just before
-   and read just after: ``train`` (serial ES, f32 store), ``train_packed``
-   (packed token-level ES, ``--pack``) and ``train_quant`` (serial ES over
-   the int8 store, ``--quant-scores``); the counts per step and finite
-   losses are asserted;
+6. the four main paths on full-width qwen1.5-0.5b through the trainer's
+   CLI entry point, every launch count set to 0 just before and read just
+   after: ``train`` (serial ES, f32 store), ``train_packed`` (packed
+   token-level ES, ``--pack``, 4 slots a row), ``train_quant`` (serial ES
+   over the int8 store, ``--quant-scores``), 4 steps each, and
+   ``train_packed_m16`` (16 slots a row of 1,024 tokens), 2 steps; the
+   counts per step and finite losses are asserted;
 7. ``legs``: where a step's time goes (serial-ES legs and a profiled step;
-   the packed step's legs; the int8 store update against the f32 one and
-   its profiled launches). Legs are timed as the trainer times a step: host
-   clock around a call that ends in a device sync.
+   the packed step's legs and the segment-sum kernels' launches and device
+   time inside its forward + backward; the int8 store update against the
+   f32 one and its profiled launches). Legs are timed as the trainer times
+   a step: host clock around a call that ends in a device sync.
 
 It prints one JSON object per line; the line before the last is the
 ``kernels`` summary, and the last is the device line. It
@@ -45,7 +54,10 @@ is missing. It imports nothing of JAX and nothing of the JAX package
 ``repro``. ``--store-bench SRC`` runs only the store timings of phase 4,
 through the store API every tree of the port has, on the port under SRC
 (e.g. a parent commit unpacked with ``git archive``), for comparisons in
-one call.
+one call. ``--segsum-bench SRC`` does the same for the segment sum's
+wrapper, its autograd backward and the pair of them at the three shapes,
+and traces path A's forward + backward; a tree whose kernel refuses a
+slot count reports ``"refused"``.
 """
 from __future__ import annotations
 
@@ -55,6 +67,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import torch
@@ -72,10 +85,13 @@ TRAIN_ARGS = FULL + ["--meta-batch", "32", "--minibatch", "8",
                      "--n-samples", "1024"]
 PACK_ARGS = FULL + ["--pack", "--max-segments", "4", "--meta-batch", "16",
                     "--minibatch", "16", "--n-samples", "1024"]
+# 16 documents a row of 1,024 tokens: 8,192 tokens a step, as on path A
+PACK16_ARGS = FULL + ["--pack", "--max-segments", "16", "--seq-len", "1024",
+                      "--meta-batch", "8", "--minibatch", "32",
+                      "--n-samples", "1024", "--max-steps", "2"]
 QUANT_ARGS = FULL + ["--quant-scores", "--quant-block", "1024",
                      "--meta-batch", "32", "--minibatch", "8",
                      "--n-samples", "65536"]
-STEPS = 4
 # launches per step of each path on qwen1.5-0.5b (24 layers); a kernel
 # left out of a path's dict must not launch there
 PER_STEP = {
@@ -84,8 +100,12 @@ PER_STEP = {
     "train": {"fused_xent": 1, "gqa_flash_attention": 24,
               "fused_score_update": 1},
     # packed: one differentiated forward (plain attention and xent), one
-    # segment sum, one f32 score update over the 64 document slots
-    "train_packed": {"segment_sum": 1, "fused_score_update": 1},
+    # segment sum and its gradient, one f32 score update over the
+    # meta-batch's document slots
+    "train_packed": {"segment_sum": 1, "segment_sum_grad": 1,
+                     "fused_score_update": 1},
+    "train_packed_m16": {"segment_sum": 1, "segment_sum_grad": 1,
+                         "fused_score_update": 1},
     # serial ES over the int8 store: the store update is the grow, the
     # ring-slot and the apply kernel
     "train_quant": {"fused_xent": 1, "gqa_flash_attention": 24,
@@ -360,56 +380,81 @@ def check_score(n: int, ids) -> float:
     return err
 
 
-def segsum_inputs(B: int, S: int, M: int, seed: int = 0):
-    """Random per-token NLL, segment ids in [0, M+1] (M+1 is in no slot)
-    and a live mask."""
+def segsum_inputs(B: int, S: int, M: int, seed: int = 0, offset: int = 0):
+    """Random per-token NLL, segment ids in [0, M+1] in any order (M+1 is
+    in no slot) and a live mask; ``offset`` > 0 starts each (B, S) tensor
+    that many elements into its allocation (pointers off 16 bytes)."""
     g = _gen(seed)
-    nll = 5 * torch.rand(B, S, device="cuda", generator=g)
-    seg = torch.randint(0, M + 2, (B, S), device="cuda", generator=g,
-                        dtype=torch.int32)
-    mask = torch.rand(B, S, device="cuda", generator=g) < 0.9
-    return nll, seg, mask
+    n = B * S + offset
+    nll = (5 * torch.rand(n, device="cuda", generator=g))[offset:]
+    seg = torch.randint(0, M + 2, (n,), device="cuda", generator=g,
+                        dtype=torch.int32)[offset:]
+    mask = (torch.rand(n, device="cuda", generator=g) < 0.9)[offset:]
+    return nll.view(B, S), seg.view(B, S), mask.view(B, S)
 
 
-def packed_segsum_inputs(seed: int = 0):
-    """Path A's layout: the first 16 rows of the packed source the trainer
-    builds (1024 documents, S = 512, M = 4), random per-token NLL."""
+def packed_segsum_inputs(B: int = 16, S: int = 512, M: int = 4,
+                         seed: int = 0):
+    """A packed layout as the trainer builds it: the first B rows of the
+    packed source of 1,024 synthetic documents at S and M (path A: S =
+    512, M = 4), random per-token NLL."""
     import numpy as np
     from repro_torch.data.packed import PackedSource
-    src = PackedSource.synthetic(1024, 512, max_segments=4, vocab=64, seed=0)
-    b = src.batch(np.arange(16))
+    src = PackedSource.synthetic(1024, S, max_segments=M, vocab=64, seed=0)
+    b = src.batch(np.arange(B))
     seg = torch.from_numpy(b["segment_ids"]).cuda()
     mask = torch.from_numpy(b["labels"] != -1).cuda()
-    nll = 5 * torch.rand(16, 512, device="cuda", generator=_gen(seed))
+    nll = 5 * torch.rand(B, S, device="cuda", generator=_gen(seed))
     return nll, seg, mask
 
 
-def check_segsum(nll, seg, mask, M: int) -> float:
+def check_segsum(nll, seg, mask, M: int):
+    """Both segment-sum kernels against their plain versions, each run
+    twice with the two outputs compared bitwise (no atomics): counts and
+    the gradient exact (also for an expanded gradient, stride 0 along the
+    slots, as autograd hands down from a sum), sums within SEGSUM_RTOL;
+    then the autograd Function against autograd through the plain
+    version. Returns the max |err| of the sums and of the gradient."""
     from repro_torch.kernels.segsum.ops import (segment_sum,
-                                                segment_sum_autograd)
-    from repro_torch.kernels.segsum.ref import segment_sum_ref
-    got_s, got_c = segment_sum(nll, seg, mask, max_segments=M)
+                                                segment_sum_autograd,
+                                                segment_sum_grad)
+    from repro_torch.kernels.segsum.ref import (segment_sum_grad_ref,
+                                                segment_sum_ref)
+    what = f"segsum {tuple(nll.shape)} M={M}"
+    runs = [segment_sum(nll, seg, mask, max_segments=M) for _ in range(2)]
     want_s, want_c = segment_sum_ref(nll, seg, mask, max_segments=M)
+    up = torch.rand(nll.shape[0], M, device="cuda", generator=_gen(9)) - 0.5
+    ups = (up, up[:, :1].expand(-1, M))
+    grads = [segment_sum_grad(u, seg, mask, max_segments=M)
+             for u in (up, up, ups[1])]
+    want_g = [segment_sum_grad_ref(u, seg, mask, max_segments=M)
+              for u in ups]
     torch.cuda.synchronize()
+    for a, b in zip(runs[0] + (grads[0],), runs[1] + (grads[1],)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: two runs differ")
+    got_s, got_c = runs[0]
     if not torch.equal(got_c, want_c):
-        raise AssertionError(f"segsum {tuple(nll.shape)} M={M}: counts "
-                             f"differ")
+        raise AssertionError(f"{what}: counts differ")
     diff = (got_s - want_s).abs()
     if not bool((diff <= SEGSUM_RTOL * want_s.abs().clamp(min=1.0)).all()):
-        raise AssertionError(f"segsum {tuple(nll.shape)} M={M}: max |err| "
-                             f"{diff.max().item()} beyond {SEGSUM_RTOL} "
-                             f"relative")
-    # the autograd.Function's backward against autograd through the plain
-    # version (the same gather of the upstream gradient: exact)
-    up = torch.rand(nll.shape[0], M, device="cuda", generator=_gen(9))
-    grads = []
+        raise AssertionError(f"{what}: max |err| {diff.max().item()} beyond "
+                             f"{SEGSUM_RTOL} relative")
+    if not (torch.equal(grads[0], want_g[0])
+            and torch.equal(grads[2], want_g[1])):
+        raise AssertionError(f"{what}: gradient differs")
+    # the autograd.Function (forward and gradient kernels) against
+    # autograd through the plain version (the same gather: exact)
+    back = []
     for fn in (segment_sum_autograd, segment_sum_ref):
         x = nll.clone().requires_grad_(True)
         (fn(x, seg, mask, max_segments=M)[0] * up).sum().backward()
-        grads.append(x.grad)
-    if not torch.equal(grads[0], grads[1]):
-        raise AssertionError(f"segsum {tuple(nll.shape)}: backward differs")
-    return diff.max().item()
+        back.append(x.grad)
+    if not torch.equal(back[0], back[1]):
+        raise AssertionError(f"{what}: autograd backward differs")
+    grad_err = max((a - b).abs().max().item()
+                   for a, b in zip(grads[::2], want_g))
+    return diff.max().item(), grad_err
 
 
 QUANT_NAMES = ("s_q", "w_q", "seen_q", "err_rows", "err_seq", "err_s",
@@ -665,9 +710,6 @@ def phase_check() -> dict:
             check_score(1 << 20, [12345]),
             check_score(1 << 24, _dup_ids(1 << 24, 512, 64)),
             check_score(1 << 16, _dup_ids(1 << 16, 5000, 300, seed=1))),
-        "segment_sum": max(check_segsum(*packed_segsum_inputs(), 4),
-                           check_segsum(*segsum_inputs(7, 300, 5), 5),
-                           check_segsum(*segsum_inputs(16, 512, 8), 8)),
         "fused_quant_score_update": max(check_quant(65536, 32, 1024, 1024),
                                         check_quant(1000, 32, 16, 64)),
         "quant_grow_scales": max(check_grow(65536, 32, 1024, 1024, 1.0),
@@ -679,6 +721,21 @@ def phase_check() -> dict:
                                 check_slots(16, 32, 16),
                                 check_slots(8192, 2000, 5000)),
     }
+    # both segment-sum kernels: the packed batches of path A (16 x 512, 4
+    # slots) and of train_packed_m16 (8 x 1,024, 16 slots), random ids in
+    # any order (1 to 64 slots, rows up to 8,192 tokens), three 64-slot
+    # tiles with ragged rows, a ragged row of 32,771 tokens, pointers off
+    # 16-byte alignment, rows shorter than a vector
+    seg_errs = [check_segsum(*packed_segsum_inputs(), 4),
+                check_segsum(*packed_segsum_inputs(8, 1024, 16), 16)] + [
+        check_segsum(*segsum_inputs(B, S, M, offset=off), M)
+        for B, S, M, off in ((7, 300, 5, 0), (16, 512, 8, 0),
+                             (4, 2048, 16, 0), (1, 8192, 64, 0),
+                             (3, 130, 1, 0), (2, 6003, 150, 0),
+                             (1, 32771, 20, 0), (5, 203, 7, 1),
+                             (9, 3, 2, 0))]
+    errs["segment_sum"] = max(e[0] for e in seg_errs)
+    errs["segment_sum_grad"] = max(e[1] for e in seg_errs)
     # the whole int8 store update (the three kernels) against the plain
     # versions: the path's shape, B > R with duplicates and masked ids,
     # and a chain of 8 updates with and without growth
@@ -787,7 +844,7 @@ def phase_time() -> dict:
     del s, w_, seen, idt, losses
     torch.cuda.empty_cache()
 
-    out["segment_sum"] = time_segsum()
+    out["segment_sum"], out["segment_sum_grad"] = time_segsum()
     out["fused_quant_score_update"] = time_quant()
     out["quant_grow_scales"] = time_grow(65536)
     out["quant_grow_scales"]["at"] = {"n2^24": time_grow(1 << 24)}
@@ -963,42 +1020,135 @@ def store_timings() -> dict:
     return out
 
 
-def time_segsum() -> dict:
-    """Path A's shapes: B = 16 rows of S = 512, M = 4 slots."""
-    from repro_torch.kernels.segsum.ops import segment_sum
-    from repro_torch.kernels.segsum.ref import segment_sum_ref
-    M = 4
-    nll, seg, mask = packed_segsum_inputs()
-    B, S = nll.shape
-    live = mask & (seg >= 1) & (seg <= M)
-    col = torch.where(live, seg, torch.zeros_like(seg)).long()
+# (B, S, M): path A's batch first, then longer rows with more documents,
+# 8,192 tokens each
+SEGSUM_SHAPES = ((16, 512, 4), (4, 2048, 16), (1, 8192, 64))
 
-    pair = torch.stack([nll * live, live.to(torch.float32)], dim=-1)
-    col2 = col[..., None].expand(B, S, 2)
 
-    def library():
-        # sums and counts in one scatter_add_ of the stacked (nll * live,
-        # live) pair into M+1 slots (slot 0 takes the dead tokens)
-        return torch.zeros(B, M + 1, 2, device="cuda").scatter_add_(
-            1, col2, pair)
+def host_ms(fn, reps: int = 200) -> float:
+    """Host time of one call: the mean over back-to-back calls with no sync
+    between them (the device keeps up: a call's kernels take microseconds,
+    its host path tens)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
 
-    # a float add and an int add per live token; nll, seg, mask read once,
-    # sums and counts written once
-    flops = 2.0 * int(live.sum())
-    nbytes = B * S * (4 + 4 + 1) + 2 * B * M * 4
-    bms, by = bound(flops, nbytes, PEAK_F32_FLOPS)
-    return {
-        "ms": time_ms(lambda: segment_sum(nll, seg, mask, max_segments=M),
-                      50),
-        "device_ms": kernel_device_ms(
-            lambda: segment_sum(nll, seg, mask, max_segments=M),
-            "segsum_kernel"),
-        "plain_ms": time_ms(lambda: segment_sum_ref(nll, seg, mask,
-                                                    max_segments=M), 20),
-        "library_ms": time_ms(library, 50),
-        "library_device_ms": device_trace(library)["device_ms"],
-        "bound_ms": bms, "bound_by": by,
-        "shape": {"B": B, "S": S, "M": M}}
+
+def segsum_tree_timings(refusable: bool = False) -> dict:
+    """The segment sum of the port on sys.path at SEGSUM_SHAPES on the
+    packed layout, through what every tree of the port has: the forward
+    wrapper (events, host time, device time of ``segsum_kernel``), the
+    autograd Function's backward alone on a saved context, and forward +
+    backward through autograd (events, launches and device time of all
+    their device work). With ``refusable`` a forward that raises
+    ValueError (a tree whose kernel caps the slots) is reported as
+    "refused" (for ``--segsum-bench`` only)."""
+    from repro_torch.kernels.segsum import ops
+    out = {}
+    for B, S, M in SEGSUM_SHAPES:
+        nll, seg, mask = packed_segsum_inputs(B, S, M)
+        up = torch.rand(B, M, device="cuda", generator=_gen(2)) - 0.5
+        ctx = types.SimpleNamespace(saved_tensors=(seg, mask), max_segments=M)
+        x = nll.clone().requires_grad_(True)
+
+        def fwd():
+            return ops.segment_sum(nll, seg, mask, max_segments=M)
+
+        def bwd():
+            return ops._SegmentSum.backward(ctx, up, None)
+
+        def pair():
+            x.grad = None
+            ops.segment_sum_autograd(x, seg, mask, max_segments=M)[0] \
+                .backward(up)
+
+        key = f"B{B}_S{S}_M{M}"
+        r = {"backward": {"ms": time_ms(bwd, 50), "host_ms": host_ms(bwd),
+                          **device_trace(bwd)}}
+        try:
+            fwd()
+        except ValueError as e:
+            if not refusable:
+                raise
+            out[key] = {"forward": "refused", "autograd": "refused",
+                        "reason": str(e), **r}
+            continue
+        r["forward"] = {"ms": time_ms(fwd, 50), "host_ms": host_ms(fwd),
+                        "device_ms": kernel_device_ms(fwd, "segsum_kernel")}
+        r["autograd"] = {"ms": time_ms(pair, 50), "host_ms": host_ms(pair),
+                         **device_trace(pair)}
+        out[key] = r
+    return out
+
+
+def time_segsum() -> tuple:
+    """Both segment-sum kernels at SEGSUM_SHAPES: the tree timings above,
+    the plain versions, one library call each (the forward: one
+    ``scatter_add_`` of the stacked (nll * live, live) pair into M+1 slots,
+    sums and counts together; the gradient: one ``gather`` of the
+    zero-padded (B, M+1) gradient by a precomputed column index), the
+    bounds, and the forward on random ids. Returns the forward's and the
+    gradient's entries at path A's shape, the others under "at"."""
+    from repro_torch.kernels.segsum.ref import (segment_sum_grad_ref,
+                                                segment_sum_ref)
+    tree = segsum_tree_timings()
+    fwd, grad = {}, {}
+    for B, S, M in SEGSUM_SHAPES:
+        key = f"B{B}_S{S}_M{M}"
+        t = tree[key]
+        nll, seg, mask = packed_segsum_inputs(B, S, M)
+        up = torch.rand(B, M, device="cuda", generator=_gen(2)) - 0.5
+        live = mask & (seg >= 1) & (seg <= M)
+        col = torch.where(live, seg, torch.zeros_like(seg)).long()
+        pair = torch.stack([nll * live, live.to(torch.float32)], dim=-1)
+        col2 = col[..., None].expand(B, S, 2)
+        padded = torch.cat([up.new_zeros(B, 1), up], dim=1)
+
+        def library():
+            return torch.zeros(B, M + 1, 2, device="cuda").scatter_add_(
+                1, col2, pair)
+
+        def grad_library():
+            return padded.gather(1, col)
+
+        rnd = segsum_inputs(B, S, M)
+        from repro_torch.kernels.segsum.ops import segment_sum
+        # a float add and an int add per live token; nll, ids and mask read
+        # once, sums and counts written once
+        bms, by = bound(2.0 * int(live.sum()), B * S * 9 + 2 * B * M * 4,
+                        PEAK_F32_FLOPS)
+        fwd[key] = {
+            **t["forward"],
+            "plain_ms": time_ms(lambda: segment_sum_ref(
+                nll, seg, mask, max_segments=M), 20),
+            "library_ms": time_ms(library, 50),
+            "library_device_ms": device_trace(library)["device_ms"],
+            "bound_ms": bms, "bound_by": by,
+            "random_ids_device_ms": kernel_device_ms(
+                lambda: segment_sum(*rnd, max_segments=M), "segsum_kernel"),
+            "shape": {"B": B, "S": S, "M": M}}
+        # ids and mask read once, the (B, M) gradient read once, the (B, S)
+        # gradient written once
+        bms, by = bound(0.0, B * S * 5 + B * M * 4 + B * S * 4)
+        grad[key] = {
+            **t["backward"],
+            "plain_ms": time_ms(lambda: segment_sum_grad_ref(
+                up, seg, mask, max_segments=M), 20),
+            "library_ms": time_ms(grad_library, 50),
+            "library_device_ms": device_trace(grad_library)["device_ms"],
+            "bound_ms": bms, "bound_by": by,
+            "autograd_pair": t["autograd"],
+            "shape": {"B": B, "S": S, "M": M}}
+    first = f"B{SEGSUM_SHAPES[0][0]}_S{SEGSUM_SHAPES[0][1]}_M" \
+            f"{SEGSUM_SHAPES[0][2]}"
+    fwd[first]["at"] = {k: v for k, v in fwd.items() if k != first}
+    grad[first]["at"] = {k: v for k, v in grad.items() if k != first}
+    return fwd[first], grad[first]
 
 
 def time_quant() -> dict:
@@ -1056,6 +1206,11 @@ KERNELS = {
     "segment_sum": {
         "route": "cuda", "source": "src/repro_torch/csrc/segsum.cu",
         "replaces": "src/repro/kernels/segsum/segsum.py:57"},
+    # the XLA gradient of the reference's one-hot einsum (the TPU has no
+    # Pallas backward for the segment sum)
+    "segment_sum_grad": {
+        "route": "cuda", "source": "src/repro_torch/csrc/segsum.cu",
+        "replaces": "src/repro/models/losses.py:107"},
     "fused_quant_score_update": {
         "route": "cuda",
         "source": "src/repro_torch/csrc/quant_score_update.cu",
@@ -1076,12 +1231,13 @@ def _wrappers() -> dict:
     from repro_torch.kernels.score_update.ops import (
         fused_quant_score_update, fused_score_update, quant_grow_scales,
         quant_ring_slots)
-    from repro_torch.kernels.segsum.ops import segment_sum
+    from repro_torch.kernels.segsum.ops import segment_sum, segment_sum_grad
     from repro_torch.kernels.xent.ops import fused_xent
     return {"fused_score_update": fused_score_update,
             "fused_xent": fused_xent,
             "gqa_flash_attention": gqa_flash_attention,
             "segment_sum": segment_sum,
+            "segment_sum_grad": segment_sum_grad,
             "fused_quant_score_update": fused_quant_score_update,
             "quant_grow_scales": quant_grow_scales,
             "quant_ring_slots": quant_ring_slots}
@@ -1125,7 +1281,13 @@ def phase_model() -> None:
 # ---------------------------------------------------------------------------
 
 PATH_ARGS = {"train": TRAIN_ARGS, "train_packed": PACK_ARGS,
-             "train_quant": QUANT_ARGS}
+             "train_quant": QUANT_ARGS, "train_packed_m16": PACK16_ARGS}
+
+
+def _steps(args) -> int:
+    """The path's step count: its last ``--max-steps``."""
+    rev = args[::-1]
+    return int(rev[rev.index("--max-steps") - 1])
 
 
 def phase_path(name: str) -> dict:
@@ -1149,15 +1311,16 @@ def phase_path(name: str) -> dict:
           "median_step_ms_after_first": statistics.median(steps[1:]),
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches": launches, "card": smi_line()})
-    if out["steps"] != STEPS or len(losses) != STEPS:
+    n_steps = _steps(args)
+    if out["steps"] != n_steps or len(losses) != n_steps:
         raise AssertionError(f"{name}: trainer ran {out['steps']} steps")
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"{name}: non-finite losses {losses}")
     for k in wrappers:
-        want = PER_STEP[name].get(k, 0) * STEPS
+        want = PER_STEP[name].get(k, 0) * n_steps
         if launches[k] != want:
             raise AssertionError(f"{name}: {k} launched {launches[k]} times "
-                                 f"in {STEPS} steps, expected {want}")
+                                 f"in {n_steps} steps, expected {want}")
     return launches
 
 
@@ -1234,22 +1397,12 @@ def _trainer(args):
         **{k: v for k, v in vars(ns).items() if k in fields}))
 
 
-def phase_legs_packed() -> None:
-    """Time of the packed step's legs at path A's shapes (host clock to a
-    device sync, median of 3): the differentiated forward + backward (the
-    segment sum inside), the segment-sum kernel alone, the f32 store
-    update over the 64 document slots, AdamW and one whole step with its
-    peak memory. Then the int8 store's update (grow/recode prologue, ring
-    slots and kernel) against the f32 kernel at path B's B = 32 and
-    n = 65,536, and the kernels each launches per call, under
-    torch.profiler."""
+def packed_forward_backward():
+    """Path A's trainer, its first batch placed on the card, and the packed
+    step's training leg on it: one differentiated forward + backward
+    (through what every tree of the port has)."""
     from repro_torch.core.engine import _value_and_grad
-    from repro_torch.core.scores import make_store
-    from repro_torch.kernels.score_update.ops import (quant_grow_scales,
-                                                      quant_ring_slots)
-    from repro_torch.kernels.segsum.ops import segment_sum
     from repro_torch.models.transformer import lm_per_segment_loss
-    from repro_torch.optim.adamw import apply_updates
     tr = _trainer(PACK_ARGS)
     eng, st = tr.engine, tr.state
     batch = tr._place(tr.ds.batch(tr.sampler.batch_ids(0, 0)))
@@ -1258,6 +1411,42 @@ def phase_legs_packed() -> None:
         return _value_and_grad(st.params, lambda: (lm_per_segment_loss(
             eng.model_cfg, st.params, batch)[0].mean(), None))
 
+    return tr, batch, fwd_bwd
+
+
+def forward_backward_trace(fwd_bwd, reps: int = 3) -> dict:
+    """Device launches and time per call of the packed forward + backward
+    in a padded trace, and the two segment-sum kernels' share."""
+    rows = _device_rows(fwd_bwd, reps)
+    out = {"launches_per_call": sum(e.count for e in rows) / reps,
+           "device_ms": sum(e.self_device_time_total
+                            for e in rows) / 1e3 / reps}
+    for kernel in ("segsum_kernel", "segsum_grad_kernel"):
+        mine = [e for e in rows if kernel in e.key]
+        out[kernel] = {"launches_per_call": sum(e.count for e in mine) / reps,
+                       "device_ms": sum(e.self_device_time_total
+                                        for e in mine) / 1e3 / reps}
+    return out
+
+
+def phase_legs_packed() -> None:
+    """Time of the packed step's legs at path A's shapes (host clock to a
+    device sync, median of 3): the differentiated forward + backward (the
+    segment sum and its gradient inside), the two segment-sum kernels
+    alone, the f32 store update over the 64 document slots, AdamW and one
+    whole step with its peak memory; the forward + backward's device
+    launches and time in a padded trace, with the two segment-sum
+    kernels' share. Then the int8 store's update (grow/recode prologue, ring
+    slots and kernel) against the f32 kernel at path B's B = 32 and
+    n = 65,536, and the kernels each launches per call, under
+    torch.profiler."""
+    from repro_torch.core.scores import make_store
+    from repro_torch.kernels.score_update.ops import (quant_grow_scales,
+                                                      quant_ring_slots)
+    from repro_torch.kernels.segsum.ops import segment_sum, segment_sum_grad
+    from repro_torch.optim.adamw import apply_updates
+    tr, batch, fwd_bwd = packed_forward_backward()
+    eng, st = tr.engine, tr.state
     _, _, grads = fwd_bwd()
     ids = batch["doc_ids"].reshape(-1)
     losses = 3 * torch.rand(ids.shape[0], device="cuda", generator=_gen(3))
@@ -1265,9 +1454,12 @@ def phase_legs_packed() -> None:
                          generator=_gen(4))
     seg = batch["segment_ids"].contiguous()
     live = (batch["labels"] != -1).contiguous()
+    up = torch.rand(nll.shape[0], 4, device="cuda", generator=_gen(6))
     legs = {
         "forward_backward": fwd_bwd,
         "segment_sum": lambda: segment_sum(nll, seg, live, max_segments=4),
+        "segment_sum_grad": lambda: segment_sum_grad(up, seg, live,
+                                                     max_segments=4),
         "store_update": lambda: eng.store.update(st.scores, ids, losses, 0.2,
                                                  0.9),
         "adamw": lambda: apply_updates(eng.opt_cfg, st.params, grads, st.opt,
@@ -1275,6 +1467,7 @@ def phase_legs_packed() -> None:
         "whole_step": lambda: eng.packed_step(st, batch),
     }
     ms = {name: wall_ms(fn, 3) for name, fn in legs.items()}
+    fb_trace = forward_backward_trace(fwd_bwd)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     eng.packed_step(st, batch)
@@ -1306,7 +1499,9 @@ def phase_legs_packed() -> None:
     trace = {k: device_trace(fn) for k, fn in store.items()}
     emit({"phase": "legs_packed", "args": PACK_ARGS, "leg_ms": ms,
           "legs_sum_ms": sum(v for k, v in ms.items()
-                             if k not in ("whole_step", "segment_sum")),
+                             if k not in ("whole_step", "segment_sum",
+                                          "segment_sum_grad")),
+          "forward_backward_trace": fb_trace,
           "whole_step_peak_memory": peak,
           "store_update_ms": store_ms, "store_update_trace": trace,
           "store_shape": {"n": n, "B": B, "block": block},
@@ -1325,16 +1520,37 @@ def store_bench(src: str) -> None:
           "timings": store_timings(), "card": smi_line()})
 
 
+def segsum_bench(src: str) -> None:
+    """``--segsum-bench SRC``: only ``segsum_tree_timings`` and the trace
+    of path A's forward + backward, on the port found under SRC, which
+    builds its own kernels from its own sources; a slot count its kernel
+    refuses is reported as "refused"."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    import repro_torch
+    phase_device()
+    timings = segsum_tree_timings(refusable=True)
+    _, _, fwd_bwd = packed_forward_backward()
+    fwd_bwd()
+    emit({"phase": "segsum_bench", "src": src,
+          "port": str(Path(repro_torch.__file__).parent), "timings": timings,
+          "forward_backward_trace": forward_backward_trace(fwd_bwd),
+          "card": smi_line()})
+
+
+BENCHES = {"--store-bench": store_bench, "--segsum-bench": segsum_bench}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:2] == ["--store-bench"] and len(sys.argv) == 3:
-        store_bench(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] in BENCHES:
+        BENCHES[sys.argv[1]](sys.argv[2])
         return
     if len(sys.argv) > 1:
-        sys.exit("usage: chip_smoke.py [--store-bench SRC]")
+        sys.exit("usage: chip_smoke.py [--store-bench SRC | --segsum-bench "
+                 "SRC]")
     phase_build()
     phase_device()
     errs = phase_check()

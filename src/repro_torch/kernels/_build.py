@@ -38,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # entry name -> argument types (all return int: a cudaError_t)
 SIGNATURES = {
     # s, w, seen, ids, losses, n, B, b1, 1-b1, b2, 1-b2, stream
@@ -48,8 +49,11 @@ SIGNATURES = {
     "repro_xent_combine": (_P, _P, _I, _I, _P),
     # q, k, v, o, B, S, H, K, hd, causal, scale, stream
     "repro_flash_attn_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-    # nll, seg, mask, sums, counts, B, S, M, stream
-    "repro_segment_sum": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # nll, seg, mask, out (sums then counts), B, S, M, stream
+    "repro_segment_sum": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # grad_sums, its row and column strides, seg, mask, grad_nll, B, S, M,
+    # stream
+    "repro_segment_sum_grad": (_P, _L, _L, _P, _P, _P, _I, _I, _I, _P),
     # s_q, w_q, seen_q, s_scale, w_scale, err_rows, err_seq, err_s, err_w,
     # ids, gids, losses, slots, seqs, n, B, R, block, b1, 1-b1, b2, 1-b2,
     # stream

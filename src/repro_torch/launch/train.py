@@ -45,7 +45,6 @@ from ..core.scores import make_store
 from ..data.packed import PackedSource
 from ..data.sampler import ESSampler
 from ..data.synthetic import SyntheticConfig, SyntheticLM
-from ..kernels.segsum.ops import MAX_SEGMENTS
 from ..optim.adamw import OptConfig
 from ..optim.schedule import get_schedule
 
@@ -151,11 +150,6 @@ class Trainer:
             tc = dataclasses.replace(tc, source="packed")
         self.tc = tc
         self.device = torch.device(tc.device)
-        if (self.device.type == "cuda" and tc.source == "packed"
-                and tc.max_segments > MAX_SEGMENTS):
-            raise ValueError(
-                f"--max-segments {tc.max_segments}: the segment-sum kernel "
-                f"takes at most {MAX_SEGMENTS} documents a row on CUDA")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: device 'cuda' requested but no CUDA "
                                "device is available; pass device='cpu' to "

@@ -39,7 +39,7 @@ from repro_torch.kernels.score_update.ops import (fused_quant_score_update,
                                                   quant_ring_slots)
 from repro_torch.kernels.score_update.ref import score_update_ref
 from repro_torch.kernels.segsum import ops as segsum_ops
-from repro_torch.kernels.segsum.ops import segment_sum
+from repro_torch.kernels.segsum.ops import segment_sum, segment_sum_grad
 from repro_torch.kernels.xent import ops as xent_ops
 from repro_torch.kernels.xent.ops import (fused_xent, per_sample_xent_fused,
                                           vocab_split, xent_combine,
@@ -324,6 +324,12 @@ CALLS = {
                                         _meta((2, 16), torch.int32),
                                         _meta((2, 16), torch.bool),
                                         max_segments=4)),
+    "segment_sum_grad": (segsum_ops, "segment_sum_grad_ref",
+                         segment_sum_grad,
+                         lambda: segment_sum_grad(
+                             _meta((2, 4), torch.float32),
+                             _meta((2, 16), torch.int32),
+                             _meta((2, 16), torch.bool), max_segments=4)),
     "quant_score_update": (
         score_ops, "quant_score_update_ref", fused_quant_score_update,
         lambda: fused_quant_score_update(

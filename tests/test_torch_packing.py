@@ -6,7 +6,10 @@ Held against JAX on the same numpy inputs:
   and after ``set_kept_docs`` (exact);
 * ``segment_causal_mask``: equal to JAX's (exact);
 * the segment-sum plain version against JAX's oracle and the Pallas kernel
-  in interpret mode, ragged B and S included: counts exact, sums 1e-6;
+  in interpret mode, ragged B and S and up to 40 slots included: counts
+  exact, sums 1e-6;
+* the segment-sum gradient's plain version against ``jax.grad`` of JAX's
+  oracle (exact);
 * ``per_segment_xent`` in float32 against JAX's: 1e-5;
 * one ``packed_step`` with JAX's Gumbel noise injected, qwen1.5 smoke in
   float32: the kept mask and ``seen`` exact; ``s``, ``w`` and the
@@ -20,7 +23,8 @@ Held within the port:
 * the packed step at M = 1 against ``es_step`` over 3 steps (SGD with
   momentum, rtol 1e-4 / atol 1e-5 as in the reference's test);
 * the segment-sum ``autograd.Function`` backward against plain autograd
-  through the plain version (exact).
+  through the plain version (exact);
+* a packed CUDA trainer takes 16 slots a row (no slot cap).
 """
 import dataclasses
 
@@ -50,7 +54,8 @@ from repro_torch.configs import ModelConfig
 from repro_torch.core import engine as tengine
 from repro_torch.data.packed import PackedSource
 from repro_torch.kernels.segsum.ops import segment_sum, segment_sum_autograd
-from repro_torch.kernels.segsum.ref import segment_sum_ref
+from repro_torch.kernels.segsum.ref import (segment_sum_grad_ref,
+                                            segment_sum_ref)
 from repro_torch.models.attention import segment_causal_mask
 from repro_torch.models.losses import per_segment_xent
 from repro_torch.models.transformer import lm_per_segment_loss
@@ -119,9 +124,10 @@ def test_segment_causal_mask_matches_jax():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("B,S,M", [(8, 128, 4), (5, 100, 3), (7, 300, 5),
-                                   (3, 130, 1)])
+                                   (3, 130, 1), (4, 256, 16), (3, 300, 40)])
 def test_segsum_plain_matches_pallas_and_oracle(B, S, M):
-    """Ragged B (block 8) and S (128 lanes) included."""
+    """Ragged B (block 8) and S (128 lanes) included, and slot counts
+    (16, 40) above the 8 the CUDA kernel once held."""
     rng = np.random.default_rng(B * S + M)
     nll = np.abs(rng.normal(size=(B, S))).astype(np.float32)
     seg = rng.integers(0, M + 2, (B, S)).astype(np.int32)   # M+1: no slot
@@ -157,6 +163,42 @@ def test_segsum_backward_matches_plain_autograd():
     np.testing.assert_array_equal(grads[0].numpy(), grads[1].numpy())
     dead = ~(mask & (seg >= 1) & (seg <= M))
     assert (grads[0][dead] == 0).all() and (grads[0][~dead] != 0).all()
+
+
+@pytest.mark.parametrize("M", [3, 16])
+def test_segsum_grad_ref_matches_jax_grad(M):
+    """The gradient's plain version against ``jax.grad`` of the
+    reference's one-hot-einsum oracle, bitwise: each live token in a slot
+    takes exactly one term, every other token 0."""
+    rng = np.random.default_rng(M)
+    B, S = 3, 50
+    nll = np.abs(rng.normal(size=(B, S))).astype(np.float32)
+    seg = rng.integers(0, M + 2, (B, S)).astype(np.int32)
+    mask = rng.random((B, S)) < 0.7
+    up = rng.normal(size=(B, M)).astype(np.float32)
+    want = jax.grad(lambda x: (jax_segsum_ref(
+        x, jnp.asarray(seg), jnp.asarray(mask), max_segments=M)[0]
+        * jnp.asarray(up)).sum())(jnp.asarray(nll))
+    got = segment_sum_grad_ref(torch.from_numpy(up), torch.from_numpy(seg),
+                               torch.from_numpy(mask), max_segments=M)
+    assert got.shape == (B, S) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    live = mask & (seg >= 1) & (seg <= M)
+    assert (got.numpy()[~live] == 0).all() and live.any() and (~live).any()
+
+
+@pytest.mark.parametrize("max_segments", [9, 16])
+def test_cuda_trainer_takes_any_slot_count(max_segments):
+    """No slot cap on CUDA: a packed CUDA ``Trainer`` above the old 8-slot
+    kernel cap gets past the configuration checks to the no-CUDA
+    ``RuntimeError``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the trainer would run")
+    from repro_torch.launch.train import Trainer, TrainerConfig
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(TrainerConfig(arch="qwen1.5-0.5b", device="cuda", pack=True,
+                              max_segments=max_segments, seq_len=32,
+                              n_samples=64))
 
 
 def test_per_segment_xent_matches_jax():

@@ -106,15 +106,6 @@ def test_default_device_raises_without_gpu():
         ttrain.Trainer(ttrain.TrainerConfig(**COMMON))
 
 
-def test_cuda_rejects_max_segments_beyond_kernel():
-    """The segment-sum kernel holds at most MAX_SEGMENTS slots; a CUDA
-    trainer refuses more before it builds the model and the store."""
-    from repro_torch.kernels.segsum.ops import MAX_SEGMENTS
-    with pytest.raises(ValueError, match="--max-segments"):
-        ttrain.main(["--device", "cuda", "--pack", "--max-segments",
-                     str(MAX_SEGMENTS + 1)])
-
-
 @pytest.mark.parametrize("flags", [["--pipelined"], ["--shard-scores"],
                                    ["--quant-scores", "--quant-wire"],
                                    ["--source", "tokens"],
