@@ -34,18 +34,33 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    wrappers' host time per call);
 5. ``model``: the full-width scoring forward (kernels) against the training
    forward (plain autograd) on a small input;
-6. the four main paths on full-width qwen1.5-0.5b through the trainer's
+6. the six main paths on full-width qwen1.5-0.5b through the trainer's
    CLI entry point, every launch count set to 0 just before and read just
-   after: ``train`` (serial ES, f32 store), ``train_packed`` (packed
-   token-level ES, ``--pack``, 4 slots a row), ``train_quant`` (serial ES
-   over the int8 store, ``--quant-scores``), 4 steps each, and
-   ``train_packed_m16`` (16 slots a row of 1,024 tokens), 2 steps; the
-   counts per step and finite losses are asserted;
+   after, each taking its batches through the prefetching data pipeline:
+   ``train`` (serial ES, f32 store), ``train_packed`` (packed token-level
+   ES, ``--pack``, 4 slots a row), ``train_quant`` (serial ES over the
+   int8 store, ``--quant-scores``), ``train_pipelined`` (``--pipelined``:
+   the prime's scoring leg, then four pipelined steps, scoring on a
+   second stream), 4 steps each, ``train_drift`` (``--freq-schedule drift
+   --score-every 8``), 8 steps, and ``train_packed_m16`` (16 slots a row
+   of 1,024 tokens), 2 steps; the launches per scoring leg (serial paths;
+   the pipelined path's prime counts one, the drift path's legs are the
+   summary's scoring steps) or per step (packed paths), the scoring-step
+   count and finite losses are asserted;
 7. ``legs``: where a step's time goes (serial-ES legs and a profiled step;
    the packed step's legs and the segment-sum kernels' launches and device
    time inside its forward + backward; the int8 store update against the
    f32 one and its profiled launches). Legs are timed as the trainer times
-   a step: host clock around a call that ends in a device sync.
+   a step: host clock around a call that ends in a device sync;
+8. ``data``: the data layer at the synthetic 32 x 512 and the packed
+   16 x 512 x 4 batch: host ms to build, to pin, and to pin and copy a
+   batch; the trainer with prefetch on and off in turns (median step, the
+   consumer's stall in next(), the untraced device busy share);
+9. ``legs_pipelined``: one pipelined step against one serial step in the
+   same call (whole-step ms; a trace read by CUDA stream: the scoring
+   kernels must run on a stream the serial step does not use, and the
+   device time both streams are busy), and the host syncs of one step of
+   each under torch's sync debug mode, also with the drift cadence firing.
 
 It prints one JSON object per line; the line before the last is the
 ``kernels`` summary, and the last is the device line. It
@@ -92,13 +107,18 @@ PACK16_ARGS = FULL + ["--pack", "--max-segments", "16", "--seq-len", "1024",
 QUANT_ARGS = FULL + ["--quant-scores", "--quant-block", "1024",
                      "--meta-batch", "32", "--minibatch", "8",
                      "--n-samples", "65536"]
-# launches per step of each path on qwen1.5-0.5b (24 layers); a kernel
-# left out of a path's dict must not launch there
-PER_STEP = {
-    # serial ES: one xent (one wrapper call: the partials and the combine
-    # kernel), one flash per layer, one f32 score update
-    "train": {"fused_xent": 1, "gqa_flash_attention": 24,
-              "fused_score_update": 1},
+PIPELINED_ARGS = TRAIN_ARGS + ["--pipelined"]
+DRIFT_ARGS = TRAIN_ARGS + ["--freq-schedule", "drift", "--score-every", "8",
+                           "--max-steps", "8"]
+# launches per unit of each path on qwen1.5-0.5b (24 layers): a unit is a
+# scoring leg on the serial-ES paths (one xent wrapper call: the partials
+# and the combine kernel; one flash per layer; one store update) and a
+# trained step on the packed paths; a kernel left out of a path's dict
+# must not launch there
+SCORING_LEG = {"fused_xent": 1, "gqa_flash_attention": 24,
+               "fused_score_update": 1}
+PER_UNIT = {
+    "train": SCORING_LEG,
     # packed: one differentiated forward (plain attention and xent), one
     # segment sum and its gradient, one f32 score update over the
     # meta-batch's document slots
@@ -111,7 +131,23 @@ PER_STEP = {
     "train_quant": {"fused_xent": 1, "gqa_flash_attention": 24,
                     "quant_grow_scales": 1, "quant_ring_slots": 1,
                     "fused_quant_score_update": 1},
+    "train_pipelined": SCORING_LEG,
+    "train_drift": SCORING_LEG,
 }
+
+
+def path_units(name: str, n_steps: int, out: dict) -> int:
+    """Units a path runs: its trained steps, but for two paths. The
+    pipelined path's prime scores the first batch before the first step
+    (4 steps stop mid-epoch: no flush), so it runs one scoring leg more
+    than steps; the drift path scores where its servo fires, which the
+    summary counts."""
+    if name == "train_pipelined":
+        return n_steps + 1
+    if name == "train_drift":
+        return int(out["scoring_steps_total"])
+    return n_steps
+
 
 XENT_TOL = 1e-3     # float32 sums in another order, __expf
 # bf16 output (one ulp is 2^-6 at |o| in [2, 4)); probabilities enter PV
@@ -1281,7 +1317,8 @@ def phase_model() -> None:
 # ---------------------------------------------------------------------------
 
 PATH_ARGS = {"train": TRAIN_ARGS, "train_packed": PACK_ARGS,
-             "train_quant": QUANT_ARGS, "train_packed_m16": PACK16_ARGS}
+             "train_quant": QUANT_ARGS, "train_packed_m16": PACK16_ARGS,
+             "train_pipelined": PIPELINED_ARGS, "train_drift": DRIFT_ARGS}
 
 
 def _steps(args) -> int:
@@ -1305,22 +1342,34 @@ def phase_path(name: str) -> dict:
     launches = {k: fn.launches for k, fn in wrappers.items()}
     losses = [r["loss"] for r in out["metrics"]]
     steps = [r["step_time"] * 1e3 for r in out["metrics"]]
+    units = path_units(name, _steps(args), out)
     emit({"phase": name, "args": args, "losses": losses,
           "bp_samples_total": out["bp_samples_total"],
+          "scoring_steps_total": out["scoring_steps_total"],
           "step_ms": steps, "median_step_ms": statistics.median(steps),
           "median_step_ms_after_first": statistics.median(steps[1:]),
+          "median_data_wait_ms": statistics.median(
+              r["data_wait"] * 1e3 for r in out["metrics"]),
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": launches, "card": smi_line()})
+          "launches": launches, "units": units, "card": smi_line()})
     n_steps = _steps(args)
     if out["steps"] != n_steps or len(losses) != n_steps:
         raise AssertionError(f"{name}: trainer ran {out['steps']} steps")
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"{name}: non-finite losses {losses}")
+    # every scoring leg of a serial path is a counted scoring step (the
+    # prime's included); the packed paths' scoring rides the training
+    # forward and counts none
+    packed = "segment_sum" in PER_UNIT[name]
+    if out["scoring_steps_total"] != (0 if packed else units) \
+            or not 1 <= units <= n_steps + 1:
+        raise AssertionError(f"{name}: {out['scoring_steps_total']} scoring "
+                             f"steps over {units} units")
     for k in wrappers:
-        want = PER_STEP[name].get(k, 0) * n_steps
+        want = PER_UNIT[name].get(k, 0) * units
         if launches[k] != want:
             raise AssertionError(f"{name}: {k} launched {launches[k]} times "
-                                 f"in {n_steps} steps, expected {want}")
+                                 f"over {units} units, expected {want}")
     return launches
 
 
@@ -1508,6 +1557,261 @@ def phase_legs_packed() -> None:
           "card": smi_line()})
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the data layer (host build, pin and copy, the consumer's stall)
+# ---------------------------------------------------------------------------
+
+def _median_ms(fn, reps: int) -> float:
+    times = []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        fn(i)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _step_device_ms(args) -> float:
+    """Device time of one trained step of ``args``'s step function (serial
+    ES or packed), from torch.profiler over 3 steps."""
+    tr = _trainer(args)
+    eng, st = tr.engine, tr.state
+    batch = tr._place(tr.pipeline.batch_at(0, 0))
+    step = eng.packed_step if tr.doc_level else eng.es_step
+    ms = device_trace(lambda: step(st, batch), reps=3)["device_ms"]
+    del tr, eng, st, batch
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _trainer_run(args) -> dict:
+    """One trainer run: median step and consumer stall after the first
+    step, in ms."""
+    from repro_torch.launch import train
+    torch.cuda.empty_cache()
+    out = train.main(args)
+    torch.cuda.synchronize()
+    rest = out["metrics"][1:]
+    return {"median_step_ms": statistics.median(r["step_time"] * 1e3
+                                                for r in rest),
+            "median_data_wait_ms": statistics.median(r["data_wait"] * 1e3
+                                                     for r in rest),
+            "max_data_wait_ms": max(r["data_wait"] * 1e3 for r in rest)}
+
+
+def phase_data() -> None:
+    """The data layer at the two batch shapes of the paths: the synthetic
+    32 x 512 meta-batch and the packed 16 x 512 x 4 one. Host ms to build
+    a batch (numpy), to pin it, and to pin and copy it to the card (the
+    trainer's CUDA placer, to a device sync); then the trainer with
+    prefetch on and off, in turns (on, off, off, on), 10 steps each: the
+    median step, the consumer's stall in next() and the untraced device
+    busy share (device time of a step, profiled, over the median step)."""
+    from repro_torch.data.pipeline import CudaPlacer
+    placer = CudaPlacer("cuda")
+    rows = {}
+    for name, args in (("synthetic", TRAIN_ARGS), ("packed", PACK_ARGS)):
+        tr = _trainer(args)
+        source, pipe = tr.source, tr.pipeline
+        hosts = [pipe.batch_at(0, i) for i in range(10)]
+        del tr
+        torch.cuda.empty_cache()
+        row = {
+            "batch_shape": list(hosts[0]["tokens"].shape),
+            "bytes": sum(v.nbytes for v in hosts[0].values()),
+            "host_build_ms": _median_ms(
+                lambda i: source.batch(pipe.sampler.batch_ids(0, i)), 10),
+            "pin_ms": _median_ms(lambda i: [
+                torch.from_numpy(v).pin_memory()
+                for v in hosts[i].values()], 10),
+        }
+
+        def pin_and_copy(i):
+            placer.ready(placer(hosts[i]))
+            torch.cuda.synchronize()
+
+        row["pin_and_copy_ms"] = _median_ms(pin_and_copy, 10)
+        run_args = args + ["--max-steps", "10"]
+        runs = [(p, _trainer_run(run_args + ([] if p else ["--no-prefetch"])))
+                for p in (True, False, False, True)]
+        device_ms = _step_device_ms(args)
+        row["device_ms_per_step"] = device_ms
+        for p, key in ((True, "prefetch_on"), (False, "prefetch_off")):
+            mine = [r for q, r in runs if q == p]
+            row[key] = [{**r, "busy_share_untraced":
+                         device_ms / r["median_step_ms"]} for r in mine]
+        rows[name] = row
+    emit({"phase": "data", "rows": rows, "card": smi_line()})
+
+
+# ---------------------------------------------------------------------------
+# phase 9: pipelined ES on two streams against the serial step
+# ---------------------------------------------------------------------------
+
+SCORING_KERNELS = ("flash_fwd_kernel", "xent_partials_kernel",
+                   "xent_combine_kernel", "score_update_kernel")
+
+
+def _union(intervals: list) -> list:
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _measure(intervals: list) -> float:
+    return sum(b - a for a, b in intervals)
+
+
+def _intersect(xs: list, ys: list) -> float:
+    """Measure of the intersection of two unions of intervals."""
+    total, i, j = 0.0, 0, 0
+    while i < len(xs) and j < len(ys):
+        lo, hi = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+        total += max(0.0, hi - lo)
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def stream_trace(fn) -> dict:
+    """One call of ``fn`` under torch.profiler (after one in the tracer's
+    warm-up step), read from its Chrome trace: device kernels per CUDA
+    stream (count, device ms), the streams of the scoring kernels, and
+    the device time in which two streams ran kernels at once."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(TRACE_PAD_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    per = {}
+    for e in kernels:
+        per.setdefault(e["args"]["stream"], []).append(e)
+    unions = {sid: _union([[e["ts"], e["ts"] + e["dur"]] for e in evs])
+              for sid, evs in per.items()}
+    overlap = 0.0
+    sids = sorted(unions)
+    for i, a in enumerate(sids):
+        for b in sids[i + 1:]:
+            overlap += _intersect(unions[a], unions[b])
+    every = _union([iv for u in unions.values() for iv in u])
+    # the window the scoring leg spans (first to last scoring-stream
+    # kernel) and the device time inside it
+    scoring_sids = {e["args"]["stream"] for e in kernels
+                    if any(k in e["name"] for k in SCORING_KERNELS)}
+    window = [[min(u[0][0] for sid, u in unions.items()
+                   if sid in scoring_sids),
+               max(u[-1][1] for sid, u in unions.items()
+                   if sid in scoring_sids)]] if scoring_sids else []
+    return {
+        "streams": {str(sid): {"kernels": len(evs),
+                               "device_ms": sum(e["dur"] for e in evs) / 1e3}
+                    for sid, evs in per.items()},
+        "scoring_streams": sorted(scoring_sids),
+        "scoring_kernels": sum(any(k in e["name"] for k in SCORING_KERNELS)
+                               for e in kernels),
+        "overlap_ms": overlap / 1e3,
+        "scoring_window_ms": _measure(window) / 1e3,
+        "scoring_window_busy_ms": _intersect(every, window) / 1e3,
+        "busy_ms": _measure(every) / 1e3,
+        "span_ms": (every[-1][1] - every[0][0]) / 1e3 if every else 0.0}
+
+
+def count_syncs(fn) -> dict:
+    """Host syncs of one call of ``fn``, as torch's sync debug mode
+    reports them (one warning per synchronizing call)."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    msgs = [str(w.message) for w in caught
+            if "synchroniz" in str(w.message)]
+    return {"syncs": len(msgs), "first": msgs[:3]}
+
+
+def phase_legs_pipelined() -> None:
+    """One pipelined step (k = 1) against one serial es_step at the
+    ``train`` path's shapes, in one call: whole-step ms (host clock to a
+    device sync, median of 3, in the order pipelined, serial, serial,
+    pipelined); one traced step of each with its kernels by CUDA stream
+    (the scoring kernels must run on a stream the serial step does not
+    use, which is the default stream the training leg runs on), the
+    device time in which the two streams overlap; and the host syncs of
+    one step of each under torch's sync debug mode, also for the drift
+    cadence (one read of the servo a firing), serial and pipelined."""
+    from repro_torch.core.engine import CadenceConfig, ESEngine
+    tr = _trainer(PIPELINED_ARGS)
+    eng, st = tr.engine, tr.state
+    b0, b1 = (tr._place(tr.pipeline.batch_at(0, i)) for i in (0, 1))
+    st = eng.prime_step(st, b0)
+    pipe = lambda: eng.pipelined_step(st, (b0, b1))   # noqa: E731
+    serial = lambda: eng.es_step(st, b0)              # noqa: E731
+    order = (("pipelined", pipe), ("serial", serial), ("serial", serial),
+             ("pipelined", pipe))
+    ms = {"pipelined": [], "serial": []}
+    for key, fn in order:
+        ms[key].append(wall_ms(fn, 3))
+    traces = {"pipelined": stream_trace(pipe), "serial": stream_trace(serial)}
+    drift = ESEngine(tr.model_cfg, tr.es_cfg, tr.opt_cfg, tr.schedule,
+                     cadence=CadenceConfig(kind="drift", k_cap=8),
+                     store=tr.store)
+
+    def fire(step_fn):
+        # a due firing: the last one a period ago
+        st.cadence.last_scored = st.opt.step - st.cadence.period
+        step_fn()
+
+    syncs = {"pipelined": count_syncs(pipe), "serial": count_syncs(serial),
+             "drift_pipelined_firing": count_syncs(lambda: fire(
+                 lambda: drift.pipelined_step(st, (b0, b1)))),
+             "drift_serial_firing": count_syncs(lambda: fire(
+                 lambda: drift.scheduled_step(st, b0)))}
+    torch.cuda.reset_peak_memory_stats()
+    pipe()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "legs_pipelined", "args": PIPELINED_ARGS,
+          "whole_step_ms": ms, "traces": traces, "syncs": syncs,
+          "pipelined_step_peak_memory": peak, "card": smi_line()})
+    serial_streams = set(traces["serial"]["streams"])
+    scoring = traces["pipelined"]["scoring_streams"]
+    if len(scoring) != 1 or str(scoring[0]) in serial_streams \
+            or len(traces["pipelined"]["streams"]) < 2:
+        raise AssertionError(f"pipelined scoring kernels on streams "
+                             f"{scoring}; the serial step ran on "
+                             f"{sorted(serial_streams)}")
+    if traces["pipelined"]["scoring_kernels"] != 27:
+        raise AssertionError("pipelined trace: "
+                             f"{traces['pipelined']['scoring_kernels']} "
+                             "scoring kernels, expected 27 (24 flash, "
+                             "2 xent, 1 score update)")
+    if syncs["pipelined"]["syncs"] > syncs["serial"]["syncs"]:
+        raise AssertionError(f"the pipelined step adds host syncs: {syncs}")
+    del tr, eng, st, drift, b0, b1
+    torch.cuda.empty_cache()
+
+
 def store_bench(src: str) -> None:
     """``--store-bench SRC``: only ``store_timings``, on the port found
     under SRC (another tree's ``src``, e.g. a parent commit unpacked with
@@ -1562,6 +1866,8 @@ def main() -> None:
             launches[k] = launches.get(k, 0) + v
     phase_legs()
     phase_legs_packed()
+    phase_data()
+    phase_legs_pipelined()
     kernels = []
     for name, meta in KERNELS.items():
         t = times[name]

@@ -1,12 +1,14 @@
 """Epoch sampler: the (seed, epoch) permutation and its meta-batches
-(counterpart of ``repro/data/pipeline/sampler.py:106-137``).
+(counterpart of ``repro/data/pipeline/sampler.py:106-169``).
 
 The permutation ``np.random.default_rng((seed, epoch)).permutation(n)`` is
 the reference's, so both packages walk the same sample ids in the same
-order. Not ported yet: kept-sets (set-level pruning), growth, multi-host
-slicing and the resumable cursor.
+order. Not ported yet: kept-sets (set-level pruning) with their grad
+scales, growth, multi-host slicing and the resumable cursor.
 """
 from __future__ import annotations
+
+from typing import Dict, Iterator
 
 import numpy as np
 
@@ -42,3 +44,9 @@ class ESSampler:
         idx = self.epoch_indices(epoch)
         for b in range(start_step, self.steps_per_epoch(epoch)):
             yield b, idx[b * self.meta_batch:(b + 1) * self.meta_batch]
+
+    def epoch_batches(self, source, epoch: int, start_step: int = 0
+                      ) -> Iterator[Dict[str, np.ndarray]]:
+        """Host batches of meta-batches ``start_step..`` of the epoch."""
+        for _, ids in self.epoch_id_stream(epoch, start_step):
+            yield source.batch(ids)

@@ -84,8 +84,8 @@ def rope_angles(positions: torch.Tensor, head_dim: int,
     half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32,
                         device=positions.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=positions.device), exps)
+    # a Python-number base: no host-to-device copy (a host sync) a call
+    freqs = 1.0 / torch.pow(theta, exps)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 

@@ -81,9 +81,12 @@ def test_port_imports_neither_jax_nor_repro():
         "             m.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "new = {'repro_torch.data.packed', 'repro_torch.kernels.segsum.ops',\n"
-        "       'repro_torch.kernels.segsum.ref'}\n"
+        "       'repro_torch.kernels.segsum.ref', 'repro_torch.core.theory',\n"
+        "       'repro_torch.data.pipeline', 'repro_torch.data.pipeline.prefetch',\n"
+        "       'repro_torch.data.pipeline.pipeline',\n"
+        "       'repro_torch.data.pipeline.sources'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
-        "assert len(names) >= 23, names\n"
+        "assert len(names) >= 47, names\n"
         "print('OK', len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -114,3 +114,30 @@ def test_es_step_matches_jax(method):
                                    rtol=1e-4)
     assert cad.period == int(jcad.period)
     assert cad.last_scored == int(jcad.last_scored) == 0
+
+
+def test_loss_and_grads_weight_grad_scale_as_jax():
+    """The training mean is weighted by ``batch["grad_scale"]`` (the
+    InfoBatch rescale) as JAX's ``_make_loss_fn`` weights it; without
+    the key it is the plain mean. 1e-5 atol / 1e-4 rtol."""
+    from _torch_parity import (_flat as pflat, host_batches, jax_batch,
+                               make_pair, torch_batch)
+    jeng, jstate, teng, tstate, rng = make_pair()
+    host = host_batches(rng, 1)[0]
+    host["grad_scale"] = rng.uniform(0.25, 2.0, B).astype(np.float32)
+    (jmean, jper), jgrads = jeng._grad_fn(jstate.params, jax_batch(host))
+    tmean, tper, tgrads = teng._loss_and_grads(tstate.params,
+                                               torch_batch(host))
+    np.testing.assert_allclose(float(tmean), float(jmean), atol=1e-5,
+                               rtol=1e-4)
+    np.testing.assert_allclose(tper.numpy(), np.asarray(jper), atol=1e-5,
+                               rtol=1e-4)
+    got, want = pflat(params_to_numpy(tgrads)), pflat(jgrads)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], atol=1e-5, rtol=1e-4,
+                                   err_msg=k)
+    del host["grad_scale"]
+    plain, per, _ = teng._loss_and_grads(tstate.params, torch_batch(host))
+    torch.testing.assert_close(plain, per.mean())
+    assert abs(float(plain) - float(tmean)) > 1e-3

@@ -26,16 +26,29 @@ COMMON = dict(arch="qwen1.5-0.5b", smoke=True, meta_batch=16, minibatch=4,
               seq_len=32, n_samples=64, max_steps=8)
 
 
-@pytest.mark.parametrize("method", ["baseline", "order"])
-def test_loss_trajectory_matches_jax_trainer(method):
+TRAJECTORIES = {
+    "baseline": ("baseline", {}),
+    "order": ("order", {}),
+    # pipelined ES: a prime and a flush an epoch (4 steps an epoch)
+    "order-pipelined": ("order", {"pipelined": True}),
+    # the drift servo decides which steps score, capped at period 8
+    "order-drift": ("order", {"freq_schedule": "drift", "score_every": 8}),
+}
+
+
+@pytest.mark.parametrize("case", list(TRAJECTORIES))
+def test_loss_trajectory_matches_jax_trainer(case):
+    method, extra = TRAJECTORIES[case]
     cfg = dataclasses.replace(get_smoke_config("qwen1.5-0.5b"),
                               compute_dtype="float32")
-    jt = JaxTrainer(JaxTrainerConfig(method=method, **COMMON), model_cfg=cfg)
+    jt = JaxTrainer(JaxTrainerConfig(method=method, **extra, **COMMON),
+                    model_cfg=cfg)
     params0 = jax.device_get(jt.state.params)
-    want = [r["loss"] for r in jt.train()["metrics"]]
+    jout = jt.train()
+    want = [r["loss"] for r in jout["metrics"]]
 
     tt = ttrain.Trainer(
-        ttrain.TrainerConfig(method=method, device="cpu", **COMMON),
+        ttrain.TrainerConfig(method=method, device="cpu", **extra, **COMMON),
         model_cfg=ModelConfig(**dataclasses.asdict(cfg)),
         init_params=params_from_jax(params0))
     out = tt.train()
@@ -43,10 +56,14 @@ def test_loss_trajectory_matches_jax_trainer(method):
     assert len(got) == len(want) == 8
     np.testing.assert_allclose(got, want, rtol=1e-3)
     assert out["steps"] == 8
-    assert out["bp_samples_total"] == (128.0 if method == "baseline"
-                                       else 32.0)
-    assert out["scoring_steps_total"] == (0.0 if method == "baseline"
-                                          else 8.0)
+    assert [r["scored"] for r in out["metrics"]] == \
+        [r["scored"] for r in jout["metrics"]]
+    assert out["bp_samples_total"] == jout["bp_samples_total"] == (
+        128.0 if method == "baseline" else 32.0)
+    assert out["scoring_steps_total"] == jout["scoring_steps_total"] == (
+        0.0 if method == "baseline" else
+        8.0 if case in ("order", "order-pipelined") else
+        jout["scoring_steps_total"])
 
 
 @pytest.mark.parametrize("k", [1, 2])
@@ -106,11 +123,41 @@ def test_default_device_raises_without_gpu():
         ttrain.Trainer(ttrain.TrainerConfig(**COMMON))
 
 
-@pytest.mark.parametrize("flags", [["--pipelined"], ["--shard-scores"],
+@pytest.mark.parametrize("flags", [["--prune-cadence", "drift"],
+                                   ["--shard-scores"],
                                    ["--quant-scores", "--quant-wire"],
                                    ["--source", "tokens"],
                                    ["--ckpt-dir", "x"], ["--method", "eswp"],
-                                   ["--freq-schedule", "drift"]])
+                                   ["--num-hosts", "2"]])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="not ported"):
         ttrain.main(["--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags,scored", [
+    (["--pipelined"], [1.0, 1.0, 1.0, 0.0]),
+    (["--freq-schedule", "fixed", "--score-every", "2"],
+     [1.0, 0.0, 1.0, 0.0]),
+    (["--freq-schedule", "warmup", "--score-every", "4"],
+     [1.0, 1.0, 1.0, 0.0]),
+    # the passband search picks period 3 of the cap of 8
+    (["--freq-schedule", "adaptive", "--score-every", "8",
+      "--gain-floor", "0.3"], [1.0, 0.0, 0.0, 1.0]),
+    # a target far above the drift: the servo doubles the period at
+    # each firing (1 -> 2 -> 4)
+    (["--freq-schedule", "drift", "--drift-target", "100",
+      "--no-prefetch", "--prefetch-depth", "3"], [1.0, 0.0, 1.0, 0.0])])
+def test_cadence_and_pipelined_cli_run_on_cpu(flags, scored):
+    """The pipelined session (a prime, three pipelined steps and the
+    flush of the epoch's held batch; the prime's scoring is counted) and
+    the four scoring cadences, 4 steps each."""
+    out = ttrain.main(["--arch", "qwen1.5-0.5b", "--method", "es",
+                       "--meta-batch", "16", "--minibatch", "4",
+                       "--seq-len", "32", "--n-samples", "64",
+                       "--max-steps", "4", "--device", "cpu", *flags])
+    got = [r["scored"] for r in out["metrics"]]
+    assert out["steps"] == 4 and len(got) == 4
+    assert np.all(np.isfinite([r["loss"] for r in out["metrics"]]))
+    assert got == scored
+    primes = 1.0 if "--pipelined" in flags else 0.0
+    assert out["scoring_steps_total"] == sum(got) + primes
