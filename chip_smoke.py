@@ -34,16 +34,21 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    wrappers' host time per call);
 5. ``model``: the full-width scoring forward (kernels) against the training
    forward (plain autograd) on a small input;
-6. the six main paths on full-width qwen1.5-0.5b through the trainer's
+6. the eight main paths on full-width qwen1.5-0.5b through the trainer's
    CLI entry point, every launch count set to 0 just before and read just
-   after, each taking its batches through the prefetching data pipeline:
+   after, each taking its batches through the prefetching data pipeline,
+   each training with the config's memory knobs (selective remat, query
+   chunks of 512, cross-entropy chunks of 1,024 where S exceeds them):
    ``train`` (serial ES, f32 store), ``train_packed`` (packed token-level
    ES, ``--pack``, 4 slots a row), ``train_quant`` (serial ES over the
    int8 store, ``--quant-scores``), ``train_pipelined`` (``--pipelined``:
    the prime's scoring leg, then four pipelined steps, scoring on a
    second stream), 4 steps each, ``train_drift`` (``--freq-schedule drift
-   --score-every 8``), 8 steps, and ``train_packed_m16`` (16 slots a row
-   of 1,024 tokens), 2 steps; the launches per scoring leg (serial paths;
+   --score-every 8``), 8 steps, ``train_packed_m16`` (16 slots a row
+   of 1,024 tokens), 2 steps, ``train_long`` (sequences of 2,048, 8 a
+   meta-batch, 2 trained: every knob fires) and ``train_packed_mb32``
+   (path A at meta-batch 32), 4 steps each; the launches per
+   scoring leg (serial paths;
    the pipelined path's prime counts one, the drift path's legs are the
    summary's scoring steps) or per step (packed paths), the scoring-step
    count and finite losses are asserted;
@@ -60,7 +65,20 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    same call (whole-step ms; a trace read by CUDA stream: the scoring
    kernels must run on a stream the serial step does not use, and the
    device time both streams are busy), and the host syncs of one step of
-   each under torch's sync debug mode, also with the drift cadence firing.
+   each under torch's sync debug mode, also with the drift cadence firing;
+10. ``memory``: ``train``, ``train_packed``, ``train_packed_m16`` and
+   ``train_long`` with the memory knobs off and on, in turns (peak device
+   memory, the training leg's time and device time, the scoring leg, the
+   median step) and ``train`` with remat "full";
+11. ``resume``: ``train``, ``train_pipelined`` (a held batch) and
+   ``train_quant`` (the int8 ring) killed after 2 steps with
+   ``--ckpt-dir`` and resumed to 4, against 4 steps straight: the tail's
+   losses and every leaf of the final state bitwise equal, with the
+   checkpoint's snapshot, write and restore times and its bytes on disk.
+   It runs in a child process (``--resume-phase``) under
+   ``torch.use_deterministic_algorithms(True)`` and
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, with its checkpoints in a
+   temporary directory that is removed.
 
 It prints one JSON object per line; the line before the last is the
 ``kernels`` summary, and the last is the device line. It
@@ -78,6 +96,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -110,6 +129,14 @@ QUANT_ARGS = FULL + ["--quant-scores", "--quant-block", "1024",
 PIPELINED_ARGS = TRAIN_ARGS + ["--pipelined"]
 DRIFT_ARGS = TRAIN_ARGS + ["--freq-schedule", "drift", "--score-every", "8",
                            "--max-steps", "8"]
+# 2,048-token context, the train path's tokens a step (16,384 scored, 4,096
+# trained): the three memory knobs all fire (4 query chunks of 512, 2
+# cross-entropy chunks of 1,024, selective remat)
+LONG_ARGS = FULL + ["--seq-len", "2048", "--meta-batch", "8", "--minibatch",
+                    "2", "--n-samples", "1024"]
+# path A at twice the meta-batch: 32 rows of 512, 128 document slots
+# (fits the card with the memory knobs on)
+PACK32_ARGS = PACK_ARGS + ["--meta-batch", "32"]
 # launches per unit of each path on qwen1.5-0.5b (24 layers): a unit is a
 # scoring leg on the serial-ES paths (one xent wrapper call: the partials
 # and the combine kernel; one flash per layer; one store update) and a
@@ -126,6 +153,8 @@ PER_UNIT = {
                      "fused_score_update": 1},
     "train_packed_m16": {"segment_sum": 1, "segment_sum_grad": 1,
                          "fused_score_update": 1},
+    "train_packed_mb32": {"segment_sum": 1, "segment_sum_grad": 1,
+                          "fused_score_update": 1},
     # serial ES over the int8 store: the store update is the grow, the
     # ring-slot and the apply kernel
     "train_quant": {"fused_xent": 1, "gqa_flash_attention": 24,
@@ -133,6 +162,7 @@ PER_UNIT = {
                     "fused_quant_score_update": 1},
     "train_pipelined": SCORING_LEG,
     "train_drift": SCORING_LEG,
+    "train_long": SCORING_LEG,
 }
 
 
@@ -1318,7 +1348,8 @@ def phase_model() -> None:
 
 PATH_ARGS = {"train": TRAIN_ARGS, "train_packed": PACK_ARGS,
              "train_quant": QUANT_ARGS, "train_packed_m16": PACK16_ARGS,
-             "train_pipelined": PIPELINED_ARGS, "train_drift": DRIFT_ARGS}
+             "train_pipelined": PIPELINED_ARGS, "train_drift": DRIFT_ARGS,
+             "train_long": LONG_ARGS, "train_packed_mb32": PACK32_ARGS}
 
 
 def _steps(args) -> int:
@@ -1438,12 +1469,15 @@ def phase_legs() -> None:
     torch.cuda.empty_cache()
 
 
-def _trainer(args):
+def _trainer(args, model_cfg=None, **tc_fields):
+    """The trainer the CLI builds from ``args``, with ``model_cfg`` and
+    ``TrainerConfig`` fields overridden."""
     from repro_torch.launch import train
     ns = train.build_parser().parse_args(args)
     fields = set(train.TrainerConfig.__dataclass_fields__)
     return train.Trainer(train.TrainerConfig(
-        **{k: v for k, v in vars(ns).items() if k in fields}))
+        **{**{k: v for k, v in vars(ns).items() if k in fields},
+           **tc_fields}), model_cfg=model_cfg)
 
 
 def packed_forward_backward():
@@ -1812,6 +1846,194 @@ def phase_legs_pipelined() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the training path's memory knobs, off against on
+# ---------------------------------------------------------------------------
+
+MEMORY_PATHS = ("train", "train_packed", "train_packed_m16", "train_long")
+
+
+def _knob_trainer(args, knobs: str):
+    """The path's trainer with the memory knobs as the config sets them
+    ("on": qwen1.5-0.5b's selective remat, query chunks of 512, the
+    trainer's cross-entropy chunks of 1,024), all three off ("off"), or
+    the config's with remat "full"."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen1.5-0.5b")
+    if knobs == "off":
+        tr = _trainer(args, dataclasses.replace(cfg, remat_policy="none",
+                                                attn_chunk_q=0))
+        tr.engine.es_cfg = tr.es_cfg = dataclasses.replace(tr.es_cfg,
+                                                           seq_chunk=0)
+        return tr
+    if knobs == "full":
+        return _trainer(args, dataclasses.replace(cfg, remat_policy="full"))
+    return _trainer(args, cfg)
+
+
+def train_leg(tr):
+    """The trainer's training leg on its first meta-batch: forward and
+    backward of the first b rows (serial ES), or the packed rows' one
+    differentiated forward (packed ES)."""
+    from repro_torch.core.engine import _value_and_grad
+    from repro_torch.models.transformer import lm_per_segment_loss
+    eng, st = tr.engine, tr.state
+    batch = tr._place(tr.pipeline.batch_at(0, 0))
+    if tr.doc_level:
+        return lambda: _value_and_grad(st.params, lambda: (
+            lm_per_segment_loss(eng.model_cfg, st.params, batch,
+                                seq_chunk=eng.es_cfg.seq_chunk)[0].mean(),
+            None))
+    sel = {k: v[:eng.es_cfg.minibatch] for k, v in batch.items()}
+    return lambda: eng._loss_and_grads(st.params, sel)
+
+
+def _knob_run(args, knobs: str) -> dict:
+    """One trainer run of ``args`` with ``knobs``: its peak device memory,
+    median step after the first and losses; then its training leg (and,
+    serial ES, its scoring leg) on the first batch, median of 3."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = _knob_trainer(args, knobs)
+    out = tr.train()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    steps = [r["step_time"] * 1e3 for r in out["metrics"]]
+    row = {"knobs": knobs, "remat_policy": tr.model_cfg.remat_policy,
+           "attn_chunk_q": tr.model_cfg.attn_chunk_q,
+           "seq_chunk": tr.es_cfg.seq_chunk, "max_memory_allocated": peak,
+           "median_step_ms_after_first": statistics.median(steps[1:]),
+           "step_ms": steps, "losses": [r["loss"] for r in out["metrics"]],
+           "train_leg_ms": wall_ms(train_leg(tr), 3),
+           "train_leg_device_ms": device_trace(train_leg(tr),
+                                               reps=2)["device_ms"]}
+    if not tr.doc_level:
+        batch = tr._place(tr.pipeline.batch_at(0, 0))
+        row["score_leg_ms"] = wall_ms(
+            lambda: tr.engine._score_leg(tr.state, batch), 3)
+    del tr
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_memory() -> None:
+    """The four paths whose training leg the knobs bound, each run with the
+    knobs off and on in turns (off, on, on, off), in one call, and
+    ``train`` also with remat "full". Each run's losses must be finite,
+    and the knobs on must lower each path's peak. (Path A at meta-batch
+    32, which fits only with the knobs on, is path ``train_packed_mb32``.)
+    """
+    rows = {}
+    for name in MEMORY_PATHS:
+        order = ("off", "on", "on", "off") + (("full",) if name == "train"
+                                               else ())
+        rows[name] = [_knob_run(PATH_ARGS[name], k) for k in order]
+    emit({"phase": "memory", "rows": rows, "card": smi_line()})
+    for name, runs in rows.items():
+        for r in runs:
+            if not all(map(math.isfinite, r["losses"])):
+                raise AssertionError(f"memory {name} {r['knobs']}: "
+                                     f"non-finite losses {r['losses']}")
+        off = [r["max_memory_allocated"] for r in runs if r["knobs"] == "off"]
+        on = [r["max_memory_allocated"] for r in runs if r["knobs"] == "on"]
+        if max(on) >= min(off):
+            raise AssertionError(f"memory {name}: knobs on peak {on}, off "
+                                 f"{off}")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: checkpoint and resume, bitwise, in a deterministic subprocess
+# ---------------------------------------------------------------------------
+
+RESUME_PATHS = ("train", "train_pipelined", "train_quant")
+
+
+def _differing(got: dict, want: dict) -> list:
+    """Paths of the leaves of two ``ESEngine.state_dict`` trees that are
+    missing from one or not bitwise equal."""
+    from repro_torch.checkpoint.checkpointer import flatten
+    g, w = flatten(got), flatten(want)
+    return sorted(set(g) ^ set(w)) + [
+        k for k in w if k in g and not (g[k].dtype == w[k].dtype
+                                        and torch.equal(g[k], w[k]))]
+
+
+def _resume_path(name: str, ckpt_dir: Path) -> dict:
+    """``name`` run 4 steps straight, against 2 steps with ``--ckpt-dir``
+    and a resumed run to 4: the tail's losses and the final state (every
+    leaf of ``ESEngine.state_dict``) must be bitwise equal. The
+    interrupted run of ``train`` also saves asynchronously at step 2 (then
+    the final save overwrites that step)."""
+    args = PATH_ARGS[name]
+    ref = _trainer(args)
+    ref_out = ref.train()
+    want = ref.engine.state_dict(ref.state)
+    tail = [r["loss"] for r in ref_out["metrics"][2:]]
+    del ref
+    first = _trainer(args + ["--max-steps", "2", "--ckpt-dir",
+                             str(ckpt_dir)],
+                     ckpt_every_steps=2 if name == "train" else 50)
+    first.ckpt.keep = 1
+    first.train()
+    saves = first.ckpt.timings
+    del first
+    torch.cuda.empty_cache()
+    res = _trainer(args + ["--ckpt-dir", str(ckpt_dir)])
+    res.ckpt.keep = 1
+    restored_at = res.global_step
+    out = res.train()
+    torch.cuda.synchronize()
+    got = res.engine.state_dict(res.state)
+    losses = [r["loss"] for r in out["metrics"]]
+    differ = _differing(got, want)
+    nbytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*")
+                 if f.is_file())
+    row = {"restored_at": restored_at, "held": res._resume_held,
+           "tail_losses": tail, "resumed_losses": losses,
+           "differing_leaves": differ, "saves": saves,
+           "restore_s": [t["seconds"] for t in res.ckpt.timings
+                         if t["op"] == "restore"],
+           "bytes_on_disk": nbytes}
+    del res, got, want
+    torch.cuda.empty_cache()
+    if restored_at != 2 or losses != tail or differ:
+        raise AssertionError(f"resume {name}: {row}")
+    return row
+
+
+def resume_phase() -> None:
+    """``--resume-phase`` (the child process of phase ``resume``): the
+    three paths' kill and resume under deterministic algorithms, in a
+    temporary directory removed afterwards."""
+    import shutil
+    import tempfile
+    torch.use_deterministic_algorithms(True)
+    rows = {}
+    with tempfile.TemporaryDirectory() as d:
+        free = shutil.disk_usage(d).free
+        for name in RESUME_PATHS:
+            rows[name] = _resume_path(name, Path(d) / name)
+            shutil.rmtree(Path(d) / name)
+    emit({"phase": "resume", "deterministic":
+          torch.are_deterministic_algorithms_enabled(),
+          "cublas_workspace_config": os.environ.get(
+              "CUBLAS_WORKSPACE_CONFIG"),
+          "disk_free_bytes": free, "paths": rows, "card": smi_line()})
+
+
+def phase_resume() -> None:
+    """Run ``resume_phase`` in a child process with deterministic
+    algorithms and a fixed cuBLAS workspace: the embedding's backward
+    accumulates with atomics unless torch is asked for its deterministic
+    form, and cuBLAS on two streams needs fixed workspaces to repeat its
+    sums. The child inherits stdout; its failure fails this run."""
+    sys.stdout.flush()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                    "--resume-phase"], env=env, check=True)
+
+
 def store_bench(src: str) -> None:
     """``--store-bench SRC``: only ``store_timings``, on the port found
     under SRC (another tree's ``src``, e.g. a parent commit unpacked with
@@ -1852,6 +2074,9 @@ def main() -> None:
     if len(sys.argv) == 3 and sys.argv[1] in BENCHES:
         BENCHES[sys.argv[1]](sys.argv[2])
         return
+    if sys.argv[1:] == ["--resume-phase"]:
+        resume_phase()
+        return
     if len(sys.argv) > 1:
         sys.exit("usage: chip_smoke.py [--store-bench SRC | --segsum-bench "
                  "SRC]")
@@ -1868,6 +2093,8 @@ def main() -> None:
     phase_legs_packed()
     phase_data()
     phase_legs_pipelined()
+    phase_memory()
+    phase_resume()
     kernels = []
     for name, meta in KERNELS.items():
         t = times[name]

@@ -70,11 +70,13 @@ class ModelConfig:
     moe_groups: int = 1
     shard_kv_heads: bool = True
 
-    # remat and scan (XLA-only knobs; the port runs eagerly)
+    # memory knobs of the training path, which the port runs:
+    # remat_policy wraps each layer (none | full | selective, see
+    # models/transformer.py:_remat) and attn_chunk_q chunks the attention's
+    # queries (models/attention.py:mha); the scoring forward's kernels
+    # ignore both. scan_unroll is XLA-only (the port has no scan).
     remat_policy: str = "selective"
     scan_unroll: bool = False
-
-    # attention implementation for the XLA path
     attn_chunk_q: int = 512
 
     def resolved_head_dim(self) -> int:

@@ -69,6 +69,7 @@ class ESConfig:
     minibatch: int = 64           # b (selected for BP)
     n_train: int = 1 << 20        # score-store size
     fused_scores: bool = True     # score kernel vs the scatter form
+    seq_chunk: int = 1024         # training xent: sequence chunks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,8 +194,9 @@ class ESEngine:
         scale = batch.get("grad_scale")
 
         def loss_fn():
-            per_sample, mean = lm_per_sample_loss(self.model_cfg, params,
-                                                  batch)
+            per_sample, mean = lm_per_sample_loss(
+                self.model_cfg, params, batch,
+                seq_chunk=self.es_cfg.seq_chunk)
             if scale is not None:
                 mean = torch.mean(per_sample * scale.to(torch.float32))
             return mean, per_sample.detach()
@@ -505,8 +507,9 @@ class ESEngine:
         zero = torch.zeros((), dtype=torch.float32, device=flat_ids.device)
 
         def loss_fn():
-            per_seg, _ = lm_per_segment_loss(self.model_cfg, state.params,
-                                             batch)
+            per_seg, _ = lm_per_segment_loss(
+                self.model_cfg, state.params, batch,
+                seq_chunk=self.es_cfg.seq_chunk)
             per_seg = per_seg.reshape(n)
             losses = per_seg.detach()
             w = torch.where(valid, weights_from_prev(s_prev, losses,
@@ -574,6 +577,53 @@ class ESEngine:
         """One epoch's driver (see ``EpochSession``)."""
         return EpochSession(self, selection_on, pipelined)
 
+    def state_dict(self, state: TrainState) -> Dict:
+        """``state`` as nested dicts of tensors, for a checkpoint: the
+        parameters, the optimizer's moments and step, the store's leaf,
+        ``pending_w``, the cadence (a pending servo settled first: it is
+        what the next step would read) and the selection generator's
+        state (a CUDA generator's is its seed and offset; re-seeding it
+        would draw other noise)."""
+        state.cadence = self._settle(state.cadence)
+        cad, opt = state.cadence, state.opt
+        dev = state.pending_w.device
+
+        def i64(x: int) -> torch.Tensor:
+            return torch.tensor(x, dtype=torch.int64, device=dev)
+
+        tree = {"params": state.params,
+                "opt": {"m": opt.m, "step": i64(opt.step)},
+                "scores": {f.name: getattr(state.scores, f.name)
+                           for f in dataclasses.fields(state.scores)},
+                "pending_w": state.pending_w,
+                "cadence": {"drift_s": cad.drift_s, "drift_w": cad.drift_w,
+                            "since_prune": cad.since_prune,
+                            "period": i64(cad.period),
+                            "last_scored": i64(cad.last_scored)},
+                "generator": state.generator.get_state()}
+        if opt.v is not None:
+            tree["opt"]["v"] = opt.v
+        return tree
+
+    def load_state_dict(self, state: TrainState, tree: Dict) -> TrainState:
+        """The ``TrainState`` that ``state_dict`` saved as ``tree`` (leaves
+        already on ``state``'s devices and dtypes, e.g. from
+        ``Checkpointer.restore(self.state_dict(state))``)."""
+        opt, cad = tree["opt"], tree["cadence"]
+        state.generator.set_state(tree["generator"])
+        return TrainState(
+            params=tree["params"],
+            opt=OptState(step=int(opt["step"]), m=opt["m"],
+                         v=opt.get("v")),
+            scores=type(state.scores)(**tree["scores"]),
+            generator=state.generator,
+            cadence=CadenceState(drift_s=cad["drift_s"],
+                                 drift_w=cad["drift_w"],
+                                 period=int(cad["period"]),
+                                 last_scored=int(cad["last_scored"]),
+                                 since_prune=cad["since_prune"]),
+            pending_w=tree["pending_w"])
+
 
 class EpochSession:
     """Per-epoch host driver: one entry point for every scoring policy.
@@ -591,7 +641,6 @@ class EpochSession:
     Other sessions route to ``scheduled_step`` (serial ES at k = 1) or
     ``baseline_step`` when selection is annealed off; packed batches run
     the packed steps, serially (their scoring rides the training forward).
-    Resuming a held batch from a checkpoint is not ported yet.
     """
 
     def __init__(self, engine: ESEngine, selection_on: bool,
@@ -606,8 +655,20 @@ class EpochSession:
 
     @property
     def has_held(self) -> bool:
-        """True while a primed meta-batch waits to be trained."""
+        """True while a primed meta-batch waits to be trained (the
+        checkpoint cursor records it, so a resume can rebuild it)."""
         return self._held is not None
+
+    def resume_held(self, batch: Batch) -> None:
+        """Reinstall the held meta-batch after a mid-epoch restore. The
+        restored ``pending_w`` holds the weights scored for it before the
+        checkpoint, so no re-prime runs (one would score it with the
+        restored, later parameters and leave the uninterrupted run's
+        trajectory)."""
+        if not self.pipelined or self._held is not None:
+            raise RuntimeError("resume_held: needs a pipelined session "
+                               "with no held batch")
+        self._held = batch
 
     def run(self, state: TrainState, stream, on_metrics=None) -> TrainState:
         """Step every batch of ``stream``; ``on_metrics(metrics)`` fires

@@ -101,6 +101,10 @@ class ReplicatedStore:
         return gumbel_topk_select(weights, k, generator=generator,
                                   gumbel=gumbel)
 
+    def checkpoint_spec(self) -> dict:
+        """The backend's provenance in a checkpoint's manifest."""
+        return {"kind": "replicated"}
+
 
 # ---------------------------------------------------------------------------
 # QuantizedStore: int8 score state with per-block scales + error feedback
@@ -271,6 +275,12 @@ class QuantizedStore:
                gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.inner.select(weights, k, generator=generator,
                                  gumbel=gumbel)
+
+    def checkpoint_spec(self) -> dict:
+        return {"kind": "quantized", "block": int(self.block),
+                "residual_rows": int(self.residual_rows),
+                "wire": bool(self.wire),
+                "inner": self.inner.checkpoint_spec()}
 
 
 Store = Union[ReplicatedStore, QuantizedStore]

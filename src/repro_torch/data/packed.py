@@ -111,6 +111,15 @@ class PackedSource:
         else:
             self._grad_scale = np.asarray(grad_scale, np.float32).copy()
 
+    def doc_state_arrays(self) -> Dict[str, np.ndarray]:
+        """Checkpoint extras: the document kept-set and grad scales."""
+        return {"doc_kept": self._kept.astype(np.int8),
+                "doc_grad_scale": self._grad_scale}
+
+    def load_doc_state(self, arrays: Dict[str, np.ndarray]) -> None:
+        self.set_kept_docs(arrays["doc_kept"].astype(bool),
+                           arrays["doc_grad_scale"])
+
     @property
     def pack_factor(self) -> float:
         """Mean documents per row."""

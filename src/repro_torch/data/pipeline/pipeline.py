@@ -8,8 +8,14 @@
 
 ``epoch`` returns a background ``Prefetcher`` by default and the inline
 ``SyncStream`` when prefetch is off, so the epoch loop is the same either
-way and its shutdown is clean. Not ported yet: pruning hooks, growth and
-the resumable cursor with its state arrays.
+way and its shutdown is clean.
+
+Resume: ``cursor``/``state_arrays`` carry the sampler's position, the
+source's fingerprint and a packed source's document kept-set through the
+checkpoint (manifest and extras); ``load_state`` checks them against this
+run, and ``epoch(epoch, start_step=s)`` then continues mid-epoch with the
+batch ids the uninterrupted run would have produced. Not ported yet:
+pruning hooks and growth.
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ import numpy as np
 
 from ..sampler import ESSampler
 from .prefetch import Placer, Prefetcher, SyncStream
-from .sources import Source
+from .sources import Source, source_fingerprint
 
 
 class DataPipeline:
@@ -52,3 +58,29 @@ class DataPipeline:
 
     def steps_per_epoch(self, epoch: int = 0) -> int:
         return self.sampler.steps_per_epoch(epoch)
+
+    # ---- resume ----------------------------------------------------------
+    def cursor(self, epoch: int, step: int) -> Dict:
+        cur = self.sampler.cursor(epoch, step)
+        name, n = source_fingerprint(self.source)
+        cur["source"] = {"kind": name, "n": n}
+        return cur
+
+    def state_arrays(self) -> Dict[str, np.ndarray]:
+        arrays = self.sampler.state_arrays()
+        if self.doc_level:
+            arrays.update(self.source.doc_state_arrays())
+        return arrays
+
+    def load_state(self, extras: Dict[str, np.ndarray],
+                   cursor: Optional[Dict] = None) -> None:
+        if cursor is not None and "source" in cursor:
+            name, n = source_fingerprint(self.source)
+            if cursor["source"]["n"] != n:
+                raise ValueError(
+                    f"pipeline resume: source length changed "
+                    f"({cursor['source']['n']} -> {n}); score rows would "
+                    f"misalign")
+        if self.doc_level and "doc_kept" in extras:
+            self.source.load_doc_state(extras)
+        self.sampler.load_state(extras, cursor)

@@ -9,7 +9,7 @@ port has the synthetic adapter here and ``PackedSource``
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Protocol
+from typing import Dict, Optional, Protocol, Tuple
 
 import numpy as np
 
@@ -34,3 +34,10 @@ class SyntheticSource:
 
     def batch(self, ids: np.ndarray) -> Dict[str, np.ndarray]:
         return self.ds.batch(ids)
+
+
+def source_fingerprint(source: Source) -> Tuple[str, int]:
+    """(class name, length): recorded in the checkpoint manifest, so that
+    a resume against another corpus fails instead of misaligning score
+    rows."""
+    return type(source).__name__, len(source)

@@ -1,5 +1,6 @@
 """The ES trainer and its CLI (counterpart of ``repro/launch/train.py``:
-``Trainer`` :104-236 and :464-588, ``main`` :591).
+``Trainer`` :104-236, ``_resume``/``_checkpoint`` :323-395 and :464-588,
+``main`` :591).
 
     python -m repro_torch.launch.train --arch qwen1.5-0.5b --full --method es \\
         --meta-batch 32 --minibatch 8 --seq-len 512 --n-samples 1024 \\
@@ -12,6 +13,8 @@
     ... --pack --max-segments 4 --meta-batch 16 --minibatch 16
     # the int8 score store
     ... --quant-scores --quant-block 1024
+    # checkpoints every 50 steps and at the end; run again to resume
+    ... --ckpt-dir /path/to/ckpts
 
 The flags are the JAX CLI's. What the port runs: methods ``es``, ``loss``,
 ``order`` and ``baseline``; serial or pipelined ES (``--pipelined``); the
@@ -21,10 +24,22 @@ synthetic source or the packed synthetic documents (``--pack``,
 ``--source packed``), through the prefetching data pipeline (on by
 default; ``--no-prefetch``, ``--prefetch-depth``); the f32 or the
 replicated int8 score store (``--quant-scores``), each with its fused
-kernel or its scatter form. Every other flag raises "not ported yet" when
-it asks for anything but its default. ``--device`` (default ``cuda``) and
-``--seed`` are the port's own: without a GPU the default device raises,
-and the CPU runs only when asked for.
+kernel or its scatter form; checkpoints and a bit-exact resume, mid-epoch
+and with a pipelined held batch included (``--ckpt-dir``). Every other
+flag raises "not ported yet" when it asks for anything but its default.
+``--device`` (default ``cuda``) and ``--seed`` are the port's own: without
+a GPU the default device raises, and the CPU runs only when asked for.
+
+The training path's memory knobs: the model config's ``remat_policy`` and
+``attn_chunk_q``, and ``ESConfig.seq_chunk`` at its default of 1,024 (the
+reference's trainer passes 0, which turns the cross-entropy's chunks
+off).
+
+A checkpoint holds the whole ``TrainState`` (``ESEngine.state_dict``) and
+a manifest whose ``metadata`` has the reference's keys: the counters, the
+store's spec, the data cursor (with ``held`` for a pipelined carry) and the
+cadence. ``prev_epoch_losses`` and ``epochs_since_prune`` ride along for
+set-level pruning, which is not ported yet.
 
 The epoch loop is the reference's: a session per epoch (pipelined primes
 folded into ``scoring_steps_total``, ``finish`` training the held batch),
@@ -48,6 +63,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..checkpoint import Checkpointer
 from ..configs.base import ModelConfig, require_dense
 from ..configs.registry import get_config, get_smoke_config, list_archs
 from ..core.annealing import AnnealSchedule
@@ -97,6 +113,8 @@ class TrainerConfig:
     max_segments: int = 4         # documents per packed row
     prefetch: bool = True         # build + copy batch t+1 during step t
     prefetch_depth: int = 2
+    ckpt_dir: Optional[str] = None
+    ckpt_every_steps: int = 50
     # not ported yet: each must keep its default (see _check_supported)
     prune_cadence: str = "epoch"
     shard_scores: bool = False
@@ -105,7 +123,6 @@ class TrainerConfig:
     num_hosts: Optional[int] = None
     grad_compression: bool = False
     data_path: Optional[str] = None
-    ckpt_dir: Optional[str] = None
 
 
 METHODS = ("es", "loss", "order", "baseline")
@@ -119,7 +136,6 @@ _NOT_PORTED = {
     "num_hosts": "--num-hosts (multi-host data slicing)",
     "grad_compression": "--grad-compression (int8 gradient wire)",
     "data_path": "--data-path (file sources)",
-    "ckpt_dir": "--ckpt-dir (checkpoint and resume)",
 }
 
 
@@ -224,10 +240,22 @@ class Trainer:
                                       self.opt_cfg, tc.seed, self.device,
                                       params=init_params, store=self.store,
                                       meta_batch=tc.meta_batch)
+        self.ckpt = Checkpointer(tc.ckpt_dir) if tc.ckpt_dir else None
         self.metrics_log: list = []
         self.global_step = 0
         self.bp_samples_total = 0.0
         self.scoring_steps_total = 0.0
+        # set-level pruning's fields (not ported): carried through
+        # checkpoints as data
+        self.prev_epoch_losses: Optional[np.ndarray] = None
+        self.epochs_since_prune = 0
+        self._cur_sess = None
+        self._epoch_consumed = 0       # meta-batches taken this epoch
+        self.start_epoch = 0
+        self._resume_step = 0          # consumed meta-batches mid-epoch
+        self._resume_held = False      # pipelined carry at checkpoint time
+        if self.ckpt and self.ckpt.latest_step() is not None:
+            self._resume()
 
     def planned_steps_per_epoch(self) -> int:
         """Meta-batches per epoch; a packed source counts rows."""
@@ -237,6 +265,68 @@ class Trainer:
     def _place(self, host: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One host batch on the trainer's device, ready to read."""
         return self._placer.ready(self._placer(host))
+
+    def _resume(self) -> None:
+        """Restore the latest checkpoint: the state, the counters and the
+        data cursor (mid-epoch position and pipelined carry)."""
+        step = self.ckpt.latest_step()
+        md = self.ckpt.manifest(step)["metadata"]
+        cur = md.get("data")
+        if cur is not None:     # checked before the state is read
+            extras = self.ckpt.extras(step)
+            self.pipeline.load_state(extras, cur)
+        self.state = self.engine.load_state_dict(
+            self.state, self.ckpt.restore(
+                self.engine.state_dict(self.state), step))
+        self.global_step = md.get("global_step", step)
+        self.start_epoch = md.get("epoch", 0)
+        self.bp_samples_total = md.get("bp_samples_total", 0.0)
+        self.scoring_steps_total = md.get("scoring_steps_total", 0.0)
+        self.epochs_since_prune = md.get("epochs_since_prune", 0)
+        if cur is not None:
+            if "prev_epoch_losses" in extras:
+                self.prev_epoch_losses = extras["prev_epoch_losses"]
+            self._resume_step = cur.get("step", 0)
+            self._resume_held = cur.get("held", False)
+            # a cursor at the epoch's end with no carry: the epoch ended,
+            # so resume at the next one
+            if (not self._resume_held and self._resume_step
+                    >= self.pipeline.steps_per_epoch(self.start_epoch)):
+                self.start_epoch += 1
+                self._resume_step = 0
+        print(f"[resume] step={self.global_step} epoch={self.start_epoch}"
+              f" epoch_step={self._resume_step}"
+              f"{' +held' if self._resume_held else ''}")
+
+    def _checkpoint(self, epoch: int, final: bool = False) -> None:
+        """Save the state with the reference's manifest metadata; the last
+        checkpoint of a run is written before ``train`` returns, the others
+        on a thread."""
+        if not self.ckpt:
+            return
+        tree = self.engine.state_dict(self.state)
+        cad = self.state.cadence
+        cursor = self.pipeline.cursor(epoch, self._epoch_consumed)
+        cursor["held"] = bool(self._cur_sess is not None
+                              and self._cur_sess.has_held)
+        md = {"global_step": self.global_step, "epoch": epoch,
+              "bp_samples_total": self.bp_samples_total,
+              "scoring_steps_total": self.scoring_steps_total,
+              "epochs_since_prune": self.epochs_since_prune,
+              "method": self.tc.method,
+              "score_store": self.store.checkpoint_spec(),
+              "data": cursor,
+              # readable copy; the values restored are the state's
+              "cadence": {"kind": self.engine.cadence.kind,
+                          "period": int(cad.period),
+                          "drift_s": float(cad.drift_s),
+                          "drift_w": float(cad.drift_w),
+                          "since_prune": float(cad.since_prune)}}
+        extras = self.pipeline.state_arrays()
+        if self.prev_epoch_losses is not None:
+            extras["prev_epoch_losses"] = self.prev_epoch_losses
+        save = self.ckpt.save if final else self.ckpt.save_async
+        save(tree, self.global_step, md, extras)
 
     def _record(self, epoch: int, m: Dict[str, Any], dur: float,
                 data_wait: float) -> bool:
@@ -251,6 +341,8 @@ class Trainer:
             "loss": float(m["loss"]), "scored": scored,
             "bp_samples_total": self.bp_samples_total,
             "step_time": dur, "data_wait": data_wait})
+        if self.ckpt and self.global_step % self.tc.ckpt_every_steps == 0:
+            self._checkpoint(epoch)
         return bool(self.tc.max_steps
                     and self.global_step >= self.tc.max_steps)
 
@@ -258,13 +350,24 @@ class Trainer:
         tc = self.tc
         t_start = time.time()
         stop = False
-        for epoch in range(tc.epochs):
+        epoch = self.start_epoch
+        for epoch in range(self.start_epoch, tc.epochs):
+            resumed = epoch == self.start_epoch
+            start_step = self._resume_step if resumed else 0
             selection_on = (self.anneal.selection_active(epoch)
                             and self.sel_method != "baseline")
             sess = self.engine.session(selection_on, tc.pipelined)
+            self._cur_sess = sess
+            self._epoch_consumed = start_step
+            if resumed and self._resume_held and start_step > 0 \
+                    and sess.pipelined:
+                # the checkpointed carry: the restored pending_w was scored
+                # for this batch, so no prime runs
+                sess.resume_held(self._place(
+                    self.pipeline.batch_at(epoch, start_step - 1)))
             primes_folded = 0
             waited = 0.0           # consumer stall since the last record
-            with self.pipeline.epoch(epoch) as stream:
+            with self.pipeline.epoch(epoch, start_step) as stream:
                 t0 = time.perf_counter()
                 while True:
                     tw = time.perf_counter()
@@ -272,6 +375,7 @@ class Trainer:
                     waited += time.perf_counter() - tw
                     if jb is None:
                         break
+                    self._epoch_consumed += 1
                     self.state, m = sess.step(self.state, jb)
                     if m is None:   # pipelined prime: batch held
                         self.scoring_steps_total += \
@@ -294,6 +398,10 @@ class Trainer:
                 float(m["loss"])
                 if self._record(epoch, m, time.perf_counter() - t0, 0.0):
                     break
+        self._checkpoint(epoch, final=True)
+        self._cur_sess = None
+        if self.ckpt:
+            self.ckpt.wait()
         out = {
             "final_loss": self.metrics_log[-1]["loss"]
             if self.metrics_log else float("nan"),
@@ -379,6 +487,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="train the partial final meta-batch of each epoch")
     ap.add_argument("--log", dest="log_path", default=None)
     ap.add_argument("--max-steps", type=int, default=None)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint every 50 steps and at the end; a run "
+                    "given a directory that holds one resumes from it")
     ap.add_argument("--quant-scores", action="store_true",
                     help="int8 score store (per-block scales + residual "
                     "ring)")
@@ -405,7 +516,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--host-id", type=int, default=None)
     ap.add_argument("--num-hosts", type=int, default=None)
     ap.add_argument("--data-path", default=None)
-    ap.add_argument("--ckpt-dir", default=None)
     return ap
 
 

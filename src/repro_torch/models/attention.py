@@ -6,7 +6,11 @@ Two paths compute the same function:
 * the training path (``scoring=False``) in plain autograd, exactly as the
   reference's XLA path: scores formed in the compute dtype, cast to
   float32, scaled, an additive causal mask of -1e30, softmax in float32,
-  probabilities cast back to the compute dtype before the PV product;
+  probabilities cast back to the compute dtype before the PV product.
+  When ``chunk_q`` (``ModelConfig.attn_chunk_q``) divides S and is smaller,
+  it runs over query chunks of ``chunk_q`` rows, each against all keys
+  with its own rows' mask (reference :141-167): the same values, with one
+  chunk's float32 scores formed at a time;
 * the no-grad scoring path (``scoring=True``) through the flash-attention
   kernel (``kernels/flash_attn``), which keeps the (S, S) scores out of
   device memory.
@@ -96,16 +100,27 @@ def _grouped_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bkgqs,bskd->bqkgd", probs, v)
 
 
+def _mask(positions: torch.Tensor, segment_ids: Optional[torch.Tensor],
+          causal: bool, rows: slice) -> Optional[torch.Tensor]:
+    """The additive mask of the query ``rows`` against every key."""
+    if segment_ids is not None:
+        return segment_causal_mask(positions[:, rows], positions,
+                                   segment_ids[:, rows], segment_ids)
+    return causal_mask(positions[rows], positions) if causal else None
+
+
 def mha(params: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
-        head_dim: int, rope_theta: float, causal: bool = True,
-        scoring: bool = False, positions: Optional[torch.Tensor] = None,
+        head_dim: int, rope_theta: float, chunk_q: int = 0,
+        causal: bool = True, scoring: bool = False,
+        positions: Optional[torch.Tensor] = None,
         segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal self-attention over x (B, S, d) -> (B, S, d).
 
     ``segment_ids`` (B, S) switches on packed-row masking (causal within
     each segment, nothing across segments or padding); ``positions`` must
     then be the per-row (B, S) local positions, so RoPE restarts per
-    document."""
+    document. ``chunk_q`` chunks the training path's queries (see the
+    module docstring); the scoring path ignores it."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)
@@ -126,11 +141,14 @@ def mha(params: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
     else:
         G = n_heads // n_kv
         qg = q.reshape(B, S, n_kv, G, head_dim)
-        if segment_ids is not None:
-            m = segment_causal_mask(positions, positions, segment_ids,
-                                    segment_ids)
+        if chunk_q and S > chunk_q and S % chunk_q == 0:
+            out = torch.cat([
+                _grouped_attn(qg[:, lo:lo + chunk_q], k, v,
+                              _mask(positions, segment_ids, causal,
+                                    slice(lo, lo + chunk_q)))
+                for lo in range(0, S, chunk_q)], dim=1)
         else:
-            m = causal_mask(positions, positions) if causal else None
-        out = _grouped_attn(qg, k, v, m)
+            out = _grouped_attn(qg, k, v, _mask(positions, segment_ids,
+                                                causal, slice(None)))
     out = out.reshape(B, S, n_heads * head_dim)
     return out @ params["wo"].to(x.dtype)

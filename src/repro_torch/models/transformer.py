@@ -13,7 +13,10 @@ stacked along a leading L axis (``layers/attn/wq`` is (L, d, H*hd)):
 Two forwards compute the same per-sample loss:
 
 * ``scoring=False``: the training path in plain autograd, as the
-  reference's XLA path;
+  reference's XLA path, with its three memory knobs: each layer under the
+  config's ``remat_policy`` (when gradients are on), query chunks of
+  ``attn_chunk_q`` in the attention, and sequence chunks of ``seq_chunk``
+  in the cross-entropy;
 * ``scoring=True``: the no-grad ES scoring forward, with attention through
   the flash-attention kernel and the loss through the fused cross-entropy
   kernel, which reads the (V, d) embedding table without a transpose.
@@ -24,9 +27,12 @@ step's one differentiated forward.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig, require_dense
 from ..kernels.xent.ops import per_sample_xent_fused
@@ -97,10 +103,41 @@ def _dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
     x = x + mha(p["attn"], h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
                 head_dim=cfg.resolved_head_dim(), rope_theta=cfg.rope_theta,
-                scoring=scoring, positions=positions,
-                segment_ids=segment_ids)
+                chunk_q=cfg.attn_chunk_q, scoring=scoring,
+                positions=positions, segment_ids=segment_ids)
     h = apply_norm(cfg.norm_kind, x, p.get("ln2"))
     return x + mlp_fwd(cfg.mlp_kind, p["mlp"], h)
+
+
+# "selective" keeps the outputs of the products without a batch dimension,
+# as jax.checkpoint_policies.dots_with_no_batch_dims_saveable does: the
+# q/k/v/o and MLP projections (``x @ W`` dispatches to mm, with a bias to
+# addmm). Everything else of the layer is recomputed in the backward: the
+# attention's batched products (bmm), the softmax, RoPE, the norms and the
+# per-use bf16 weight casts.
+SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _selective_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``fn`` under the config's remat policy (counterpart of the
+    reference's ``_maybe_remat``, ``transformer.py:39-47``): "none" keeps
+    every activation, "full" recomputes the layer in the backward, and
+    "selective" recomputes it but for the ``SAVED_OPS`` outputs."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return partial(checkpoint, fn, use_reentrant=False)
+    if policy == "selective":
+        return partial(checkpoint, fn, use_reentrant=False,
+                       context_fn=partial(
+                           create_selective_checkpoint_contexts,
+                           _selective_policy))
+    raise ValueError(policy)
 
 
 def lm_hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
@@ -111,20 +148,24 @@ def lm_hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     rows."""
     require_dense(cfg)
     x = embed_tokens(params["embed"], tokens, dtype_of(cfg.compute_dtype))
+    block = _remat(_dense_block, cfg.remat_policy)
+    if scoring or not torch.is_grad_enabled():
+        block = _dense_block    # nothing to save: no remat
     for p in _unstack(params["layers"], cfg.num_layers):
-        x = _dense_block(cfg, p, x, scoring, positions, segment_ids)
+        x = block(cfg, p, x, scoring, positions, segment_ids)
     return apply_norm(cfg.norm_kind, x, params.get("final_norm"))
 
 
 def lm_per_sample_loss(cfg: ModelConfig, params: Dict,
                        batch: Dict[str, torch.Tensor], *,
-                       scoring: bool = False
+                       scoring: bool = False, seq_chunk: int = 1024
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (per_sample_loss (B,) f32, mean ()).
 
     ``scoring=True`` is the no-grad ES scoring forward through the
     flash-attention and fused cross-entropy kernels; call it under
-    ``torch.no_grad()``.
+    ``torch.no_grad()``. ``seq_chunk`` chunks the training path's
+    cross-entropy (``ESConfig.seq_chunk``); the kernel ignores it.
     """
     h = lm_hidden(cfg, params, batch["tokens"], scoring=scoring,
                   positions=batch.get("positions"),
@@ -133,11 +174,12 @@ def lm_per_sample_loss(cfg: ModelConfig, params: Dict,
         table = unembed_table(params["embed"]).to(h.dtype).contiguous()
         return per_sample_xent_fused(h, table, batch["labels"])
     return per_sample_xent(h, unembed_matrix(params["embed"]),
-                           batch["labels"])
+                           batch["labels"], seq_chunk=seq_chunk)
 
 
 def lm_per_segment_loss(cfg: ModelConfig, params: Dict,
-                        batch: Dict[str, torch.Tensor]
+                        batch: Dict[str, torch.Tensor], *,
+                        seq_chunk: int = 1024
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-document losses of a packed batch -> ``(per_seg (B, M), counts
     (B, M))``, M = ``batch["doc_ids"].shape[1]``: the mean NLL over each
@@ -148,4 +190,5 @@ def lm_per_segment_loss(cfg: ModelConfig, params: Dict,
                   segment_ids=batch["segment_ids"])
     return per_segment_xent(h, unembed_matrix(params["embed"]),
                             batch["labels"], batch["segment_ids"],
-                            max_segments=batch["doc_ids"].shape[1])
+                            max_segments=batch["doc_ids"].shape[1],
+                            seq_chunk=seq_chunk)

@@ -84,9 +84,11 @@ def test_port_imports_neither_jax_nor_repro():
         "       'repro_torch.kernels.segsum.ref', 'repro_torch.core.theory',\n"
         "       'repro_torch.data.pipeline', 'repro_torch.data.pipeline.prefetch',\n"
         "       'repro_torch.data.pipeline.pipeline',\n"
-        "       'repro_torch.data.pipeline.sources'}\n"
+        "       'repro_torch.data.pipeline.sources',\n"
+        "       'repro_torch.checkpoint',\n"
+        "       'repro_torch.checkpoint.checkpointer'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
-        "assert len(names) >= 47, names\n"
+        "assert len(names) >= 49, names\n"
         "print('OK', len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -127,7 +127,7 @@ def test_default_device_raises_without_gpu():
                                    ["--shard-scores"],
                                    ["--quant-scores", "--quant-wire"],
                                    ["--source", "tokens"],
-                                   ["--ckpt-dir", "x"], ["--method", "eswp"],
+                                   ["--data-path", "x"], ["--method", "eswp"],
                                    ["--num-hosts", "2"]])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="not ported"):
