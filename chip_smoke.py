@@ -34,9 +34,10 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    wrappers' host time per call);
 5. ``model``: the full-width scoring forward (kernels) against the training
    forward (plain autograd) on a small input;
-6. the eight main paths on full-width qwen1.5-0.5b through the trainer's
-   CLI entry point, every launch count set to 0 just before and read just
-   after, each taking its batches through the prefetching data pipeline,
+6. the eleven main paths on full-width qwen1.5-0.5b through the trainer
+   the CLI builds (``Trainer.train``), every launch count set to 0 just
+   before and read just after, each taking its batches through the
+   prefetching data pipeline,
    each training with the config's memory knobs (selective remat, query
    chunks of 512, cross-entropy chunks of 1,024 where S exceeds them):
    ``train`` (serial ES, f32 store), ``train_packed`` (packed token-level
@@ -47,11 +48,18 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    --score-every 8``), 8 steps, ``train_packed_m16`` (16 slots a row
    of 1,024 tokens), 2 steps, ``train_long`` (sequences of 2,048, 8 a
    meta-batch, 2 trained: every knob fires) and ``train_packed_mb32``
-   (path A at meta-batch 32), 4 steps each; the launches per
-   scoring leg (serial paths;
-   the pipelined path's prime counts one, the drift path's legs are the
-   summary's scoring steps) or per step (packed paths), the scoring-step
-   count and finite losses are asserted;
+   (path A at meta-batch 32), 4 steps each; and set-level pruning over
+   256 samples, 2 epochs, a prune decision before each: ``train_eswp``
+   (``--method eswp --prune-cadence drift`` at S1's shape, 205 kept, 6
+   steps an epoch), ``train_infobatch`` (baseline steps over 16 rows with
+   InfoBatch's kept-set and grad scales) and ``train_packed_eswp`` (path
+   A, documents pruned inside rows); the launches per scoring leg (serial
+   paths; the pipelined path's prime counts one, the drift path's legs
+   are the summary's scoring steps) or per step (packed and baseline
+   paths), the scoring-step count and finite losses are asserted, and
+   for the pruned paths the prune events the reference's rules give, the
+   kept-set's size, each epoch's step count as the sampler gives it and
+   InfoBatch's weighted mean against the unweighted one on one batch;
 7. ``legs``: where a step's time goes (serial-ES legs and a profiled step;
    the packed step's legs and the segment-sum kernels' launches and device
    time inside its forward + backward; the int8 store update against the
@@ -70,10 +78,17 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    ``train_long`` with the memory knobs off and on, in turns (peak device
    memory, the training leg's time and device time, the scoring leg, the
    median step) and ``train`` with remat "full";
-11. ``resume``: ``train``, ``train_pipelined`` (a held batch) and
+11. ``prune``: the f32 and the int8 store at n = 2^20 and 2^24 rows,
+   filled through their update kernels; the snapshot's time (device sync
+   and copy to the host) held bitwise against the store's tensors copied
+   plainly, and each set-level method's decision time on it, its kept-set
+   held against ``prune_epoch`` on those arrays;
+12. ``resume``: ``train``, ``train_pipelined`` (a held batch) and
    ``train_quant`` (the int8 ring) killed after 2 steps with
-   ``--ckpt-dir`` and resumed to 4, against 4 steps straight: the tail's
-   losses and every leaf of the final state bitwise equal, with the
+   ``--ckpt-dir`` and resumed to 4, against 4 steps straight, and
+   ``train_eswp`` killed at step 8 (mid-epoch 1, after a prune) and
+   resumed to 12: the tail's losses, every leaf of the final state, the
+   kept-set's digest and ``prev_epoch_losses`` bitwise equal, with the
    checkpoint's snapshot, write and restore times and its bytes on disk.
    It runs in a child process (``--resume-phase``) under
    ``torch.use_deterministic_algorithms(True)`` and
@@ -137,6 +152,21 @@ LONG_ARGS = FULL + ["--seq-len", "2048", "--meta-batch", "8", "--minibatch",
 # path A at twice the meta-batch: 32 rows of 512, 128 document slots
 # (fits the card with the memory knobs on)
 PACK32_ARGS = PACK_ARGS + ["--meta-batch", "32"]
+# set-level pruning, 2 epochs of 256 samples (a prune decision before
+# each; the first is "first-prune"). The step caps are above the runs'
+# lengths, which the sampler sets: ESWP at S1's shape keeps round(0.8 *
+# 256) = 205 samples, 6 steps an epoch; InfoBatch takes baseline steps
+# over 16 rows (A's 8,192 tokens), its kept-set and grad scales from the
+# scores; packed ESWP prunes documents inside path A's rows
+ESWP_ARGS = FULL + ["--method", "eswp", "--prune-cadence", "drift",
+                    "--meta-batch", "32", "--minibatch", "8",
+                    "--n-samples", "256", "--epochs", "2",
+                    "--max-steps", "64"]
+INFOBATCH_ARGS = FULL + ["--method", "infobatch", "--meta-batch", "16",
+                         "--n-samples", "256", "--epochs", "2",
+                         "--max-steps", "64"]
+PACKED_ESWP_ARGS = PACK_ARGS + ["--method", "eswp", "--n-samples", "256",
+                                "--epochs", "2", "--max-steps", "64"]
 # launches per unit of each path on qwen1.5-0.5b (24 layers): a unit is a
 # scoring leg on the serial-ES paths (one xent wrapper call: the partials
 # and the combine kernel; one flash per layer; one store update) and a
@@ -163,6 +193,12 @@ PER_UNIT = {
     "train_pipelined": SCORING_LEG,
     "train_drift": SCORING_LEG,
     "train_long": SCORING_LEG,
+    "train_eswp": SCORING_LEG,
+    # baseline steps: no scoring leg; the store updates from the training
+    # forward's per-sample losses
+    "train_infobatch": {"fused_score_update": 1},
+    "train_packed_eswp": {"segment_sum": 1, "segment_sum_grad": 1,
+                          "fused_score_update": 1},
 }
 
 
@@ -1343,13 +1379,15 @@ def phase_model() -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the trainer's three paths, full width, through its CLI
+# phase 6: the trainer's paths, full width, through the trainer the CLI builds
 # ---------------------------------------------------------------------------
 
 PATH_ARGS = {"train": TRAIN_ARGS, "train_packed": PACK_ARGS,
              "train_quant": QUANT_ARGS, "train_packed_m16": PACK16_ARGS,
              "train_pipelined": PIPELINED_ARGS, "train_drift": DRIFT_ARGS,
-             "train_long": LONG_ARGS, "train_packed_mb32": PACK32_ARGS}
+             "train_long": LONG_ARGS, "train_packed_mb32": PACK32_ARGS,
+             "train_eswp": ESWP_ARGS, "train_infobatch": INFOBATCH_ARGS,
+             "train_packed_eswp": PACKED_ESWP_ARGS}
 
 
 def _steps(args) -> int:
@@ -1359,21 +1397,24 @@ def _steps(args) -> int:
 
 
 def phase_path(name: str) -> dict:
-    """Run one path through ``train.main`` with every launch count set to
-    0 just before and read just after."""
-    from repro_torch.launch import train
+    """Run one path through the trainer the CLI builds (``Trainer.train``)
+    with every launch count set to 0 just before and read just after."""
     args = PATH_ARGS[name]
     wrappers = _wrappers()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    tr = _trainer(args)
     for fn in wrappers.values():
         fn.launches = 0
-    out = train.main(args)
+    out = tr.train()
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in wrappers.items()}
     losses = [r["loss"] for r in out["metrics"]]
     steps = [r["step_time"] * 1e3 for r in out["metrics"]]
-    units = path_units(name, _steps(args), out)
+    # the step cap, or the epochs' lengths as the sampler re-read them
+    n_steps = min(_steps(args), sum(e["steps_per_epoch"]
+                                    for e in out["epoch_log"]))
+    units = path_units(name, n_steps, out)
     emit({"phase": name, "args": args, "losses": losses,
           "bp_samples_total": out["bp_samples_total"],
           "scoring_steps_total": out["scoring_steps_total"],
@@ -1382,17 +1423,19 @@ def phase_path(name: str) -> dict:
           "median_data_wait_ms": statistics.median(
               r["data_wait"] * 1e3 for r in out["metrics"]),
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "epoch_log": out["epoch_log"], "prune_events": out["prune_events"],
           "launches": launches, "units": units, "card": smi_line()})
-    n_steps = _steps(args)
     if out["steps"] != n_steps or len(losses) != n_steps:
-        raise AssertionError(f"{name}: trainer ran {out['steps']} steps")
+        raise AssertionError(f"{name}: trainer ran {out['steps']} steps, "
+                             f"expected {n_steps}")
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"{name}: non-finite losses {losses}")
     # every scoring leg of a serial path is a counted scoring step (the
-    # prime's included); the packed paths' scoring rides the training
-    # forward and counts none
-    packed = "segment_sum" in PER_UNIT[name]
-    if out["scoring_steps_total"] != (0 if packed else units) \
+    # prime's included); a path whose unit launches no xent runs no
+    # scoring forward and counts none: packed ES (scoring rides the
+    # training forward) and baseline steps (set-level methods)
+    scored = "fused_xent" in PER_UNIT[name]
+    if out["scoring_steps_total"] != (units if scored else 0) \
             or not 1 <= units <= n_steps + 1:
         raise AssertionError(f"{name}: {out['scoring_steps_total']} scoring "
                              f"steps over {units} units")
@@ -1401,7 +1444,93 @@ def phase_path(name: str) -> dict:
         if launches[k] != want:
             raise AssertionError(f"{name}: {k} launched {launches[k]} times "
                                  f"over {units} units, expected {want}")
+    if name in PRUNE_PATHS:
+        check_pruning(name, tr, out)
+    del tr
+    torch.cuda.empty_cache()
     return launches
+
+
+PRUNE_PATHS = ("train_eswp", "train_infobatch", "train_packed_eswp")
+
+
+def reference_prune_events(tr, out) -> list:
+    """The prune decisions the reference's rules give for the drift each
+    event read (``src/repro/launch/train.py:397-435``,
+    ``src/repro/core/engine.py:712-735``): one before each epoch in the
+    annealing window; the first is "first-prune", then the epoch cadence
+    always prunes, and the drift cadence once the gap reaches the max
+    interval or the drift reaches the floor; an epoch counts itself."""
+    cad = tr.engine.cadence
+    since, pruned, want = 0, False, []
+    for ev in out["prune_events"]:
+        since += 1
+        if not pruned:
+            fired, reason = True, "first-prune"
+        elif cad.prune_kind == "epoch":
+            fired, reason = True, "epoch-cadence"
+        elif since >= cad.prune_max_interval:
+            fired, reason = True, "max-interval"
+        elif ev["since_prune_drift"] >= cad.prune_drift_floor:
+            fired, reason = True, "drift"
+        else:
+            fired, reason = False, "drift-below-floor"
+        want.append({"epoch": ev["epoch"], "fired": fired,
+                     "reason": reason, "epochs_since_prune": since,
+                     "since_prune_drift": ev["since_prune_drift"]})
+        if fired:
+            since, pruned = 0, True
+    return want
+
+
+def check_pruning(name: str, tr, out) -> None:
+    """A pruned path's decisions, kept-set and horizon: the prune events
+    the reference's rules give, one an epoch; ESWP's kept-set of
+    round(0.8 n) (rows, or documents inside rows); each epoch's step
+    count as the sampler gives it; InfoBatch's second epoch trained with
+    grad scales of 1/(1-r), and the engine's weighted mean on such a batch
+    differs from the unweighted one."""
+    tc = tr.tc
+    events = out["prune_events"]
+    if [e["epoch"] for e in events] != list(range(tc.epochs)) \
+            or events != reference_prune_events(tr, out):
+        raise AssertionError(f"{name}: prune events {events}")
+    n_keep = round((1.0 - tc.pruning_ratio) * tr.n_train)
+    last = out["epoch_log"][-1]
+    if last["steps_per_epoch"] != tr.pipeline.steps_per_epoch(
+            last["epoch"]):
+        raise AssertionError(f"{name}: epoch log {out['epoch_log']}")
+    spe = [e["steps_per_epoch"] for e in out["epoch_log"]]
+    if tr.doc_level:
+        kept = int(tr.source.doc_state_arrays()["doc_kept"].sum())
+        ok = kept == n_keep and spe == [len(tr.source) // tc.meta_batch] * 2
+    elif tc.method == "eswp":
+        kept = len(tr.sampler.kept)
+        ok = kept == n_keep and spe == [n_keep // tc.meta_batch] * 2
+    else:
+        kept = len(tr.sampler.kept)
+        gs = tr.sampler.grad_scale
+        ok = (spe[0] == tr.n_train // tc.meta_batch and kept < tr.n_train
+              and spe[1] == kept // tc.meta_batch
+              and bool((gs == 1.0 / (1.0 - tc.pruning_ratio)).any()))
+        # the second epoch's first batch that holds a rescaled sample
+        step = next(i for i in range(spe[1]) if (tr.sampler.grad_scale_for(
+            tr.sampler.batch_ids(1, i)) != 1.0).any())
+        batch = tr._place(tr.pipeline.batch_at(1, step))
+        mean, per_sample, _ = tr.engine._loss_and_grads(tr.state.params,
+                                                        batch)
+        weighted = float(mean)
+        plain = float(per_sample.mean())
+        emit({"phase": f"{name}_grad_scale", "batch_scales":
+              batch["grad_scale"].tolist(), "weighted_mean": weighted,
+              "unweighted_mean": plain})
+        ok = ok and bool((batch["grad_scale"] != 1.0).any()) \
+            and weighted != plain
+    emit({"phase": f"{name}_kept", "kept": kept, "n": tr.n_train,
+          "steps_per_epoch": spe, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{name}: kept {kept} of {tr.n_train}, steps "
+                             f"per epoch {spe}")
 
 
 # ---------------------------------------------------------------------------
@@ -1943,10 +2072,126 @@ def phase_memory() -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: checkpoint and resume, bitwise, in a deterministic subprocess
+# phase 11: set-level pruning's host cost at a user's dataset sizes
 # ---------------------------------------------------------------------------
 
-RESUME_PATHS = ("train", "train_pipelined", "train_quant")
+PRUNE_SIZES = (1 << 20, 1 << 24)
+PRUNE_METHODS = ("eswp", "infobatch", "ucb", "ka", "random")
+# ids a store update takes in the fill: the int8 grow kernel scans its
+# batch once per position, so its batches stay at one kernel chunk
+FILL_BATCH = {"f32": 1 << 20, "int8": 4096}
+
+
+def fill_store(kind: str, n: int, g: torch.Generator):
+    """A store of n rows on the card (f32, or int8 in blocks of 1,024 with
+    a ring of 1,024), every row scored once in random order through the
+    store's update kernel(s), then a random quarter of the rows again
+    (so ``seen`` is 1 or 2) -> (store, scores, fill seconds)."""
+    from repro_torch.core.scores import make_store
+    store = make_store(None, quantize=kind == "int8", block=1024,
+                       residual_rows=1024)
+    scores = store.init_leaf(n, "cuda")
+    ids = torch.cat([torch.randperm(n, generator=g, device="cuda"),
+                     torch.randperm(n, generator=g, device="cuda")[:n // 4]]
+                    ).to(torch.int32)
+    losses = torch.rand(ids.shape[0], generator=g, device="cuda") * 8 + 0.1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    B = FILL_BATCH[kind]
+    for lo in range(0, ids.shape[0], B):
+        store.update(scores, ids[lo:lo + B], losses[lo:lo + B], 0.2, 0.9)
+    torch.cuda.synchronize()
+    return store, scores, time.perf_counter() - t0
+
+
+def plain_snapshot(kind: str, scores) -> tuple:
+    """(weights, losses, seen) of the store as numpy arrays, from the
+    store's tensors copied plainly; an int8 store's values dequantised on
+    the card (code * its block's scale, then each live ring row's
+    residual; the ring's rows are distinct after the fill)."""
+    torch.cuda.synchronize()
+    if kind == "f32":
+        return tuple(t.cpu().numpy() for t in (scores.w, scores.s,
+                                               scores.seen))
+    live = scores.err_seq > 0
+    rows = scores.err_rows[live].long()
+    if rows.unique().numel() != rows.numel():
+        raise AssertionError("prune: ring rows repeat after the fill")
+
+    def deq(q, scale, err):
+        v = q.float() * torch.repeat_interleave(scale, 1024)[:q.shape[0]]
+        v[rows] = v[rows] + err[live]
+        return v.cpu().numpy()
+
+    return (deq(scores.w_q, scores.w_scale, scores.err_w),
+            deq(scores.s_q, scores.s_scale, scores.err_s),
+            scores.seen_q.to(torch.int32).cpu().numpy())
+
+
+def phase_prune() -> None:
+    """Set-level pruning at n = 2^20 and 2^24 rows, over the f32 and the
+    int8 store filled through their kernels: the snapshot (the device
+    sync and copy to the host, and the int8 dequant; median of 3) held
+    bitwise against the store's tensors copied plainly, then each method's
+    decision on it (host clock, one call) held against ``prune_epoch`` on
+    those plain arrays with the same generator (kept-set and grad scales
+    bitwise). KA's previous losses are the snapshot's, each scaled by a
+    factor in [0.9, 1.1]."""
+    import numpy as np
+    from repro_torch.core.pruning import prune_epoch, prune_epoch_snapshot
+    rows = []
+    for n in PRUNE_SIZES:
+        for kind in ("f32", "int8"):
+            g = _gen(11)
+            store, scores, fill_s = fill_store(kind, n, g)
+            snap_ms = [wall_ms(lambda: store.prune_snapshot(scores), 1,
+                               warmup=0) for _ in range(3)]
+            snap = store.prune_snapshot(scores)
+            w, s, seen = plain_snapshot(kind, scores)
+            for name, got, want in (("weights", snap.weights[0], w),
+                                    ("losses", snap.losses[0], s),
+                                    ("seen", snap.seen[0], seen)):
+                if got.dtype != want.dtype or not np.array_equal(got, want):
+                    raise AssertionError(f"prune {kind} n={n}: snapshot "
+                                         f"{name} differs")
+            prev = (s * np.random.default_rng(5).uniform(
+                0.9, 1.1, n)).astype(np.float32)
+            decide_ms, kept = {}, {}
+            for i, m in enumerate(PRUNE_METHODS):
+                t0 = time.perf_counter()
+                res = prune_epoch_snapshot(m, np.random.default_rng((n, i)),
+                                           snap, prev_losses=prev,
+                                           ratio=0.2)
+                decide_ms[m] = (time.perf_counter() - t0) * 1e3
+                want = prune_epoch(m, np.random.default_rng((n, i)),
+                                   weights=w, losses=s, seen=seen,
+                                   prev_losses=prev, ratio=0.2)
+                same = np.array_equal(res.kept, want.kept) and (
+                    (res.grad_scale is None and want.grad_scale is None)
+                    or np.array_equal(res.grad_scale, want.grad_scale))
+                if not same:
+                    raise AssertionError(f"prune {kind} n={n}: {m} kept-set "
+                                         f"differs from prune_epoch's")
+                kept[m] = int(len(res.kept))
+            if kept["eswp"] != round(0.8 * n):
+                raise AssertionError(f"prune {kind} n={n}: eswp kept "
+                                     f"{kept['eswp']}")
+            rows.append({"n": n, "store": kind, "fill_s": fill_s,
+                         "snapshot_ms": snap_ms, "decide_ms": decide_ms,
+                         "kept": kept})
+            emit({"phase": "prune", **rows[-1], "card": smi_line()})
+            del store, scores, snap
+            torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 12: checkpoint and resume, bitwise, in a deterministic subprocess
+# ---------------------------------------------------------------------------
+
+# path -> the step its interrupted run stops at: 2 of 4, or mid-epoch 1 of
+# train_eswp (8 of 12 steps), after its second prune decision
+RESUME_PATHS = {"train": 2, "train_pipelined": 2, "train_quant": 2,
+                "train_eswp": 8}
 
 
 def _differing(got: dict, want: dict) -> list:
@@ -1959,19 +2204,30 @@ def _differing(got: dict, want: dict) -> list:
                                         and torch.equal(g[k], w[k]))]
 
 
+def _prune_state(tr) -> dict:
+    """What set-level pruning carries across a resume: the kept-set's
+    digest and the last prune's s snapshot (``prev_epoch_losses``)."""
+    prev = tr.prev_epoch_losses
+    return {"kept_digest": tr.pipeline.cursor(0, 0)["kept_digest"],
+            "prev_epoch_losses": None if prev is None else prev.tobytes()}
+
+
 def _resume_path(name: str, ckpt_dir: Path) -> dict:
-    """``name`` run 4 steps straight, against 2 steps with ``--ckpt-dir``
-    and a resumed run to 4: the tail's losses and the final state (every
-    leaf of ``ESEngine.state_dict``) must be bitwise equal. The
-    interrupted run of ``train`` also saves asynchronously at step 2 (then
-    the final save overwrites that step)."""
-    args = PATH_ARGS[name]
+    """``name`` run straight, against a run stopped at
+    ``RESUME_PATHS[name]`` with ``--ckpt-dir`` and a resumed run to the
+    same end: the tail's losses, the final state (every leaf of
+    ``ESEngine.state_dict``), the kept-set's digest and
+    ``prev_epoch_losses`` must be bitwise equal. The interrupted run of
+    ``train`` also saves asynchronously at step 2 (then the final save
+    overwrites that step)."""
+    args, stop = PATH_ARGS[name], RESUME_PATHS[name]
     ref = _trainer(args)
     ref_out = ref.train()
     want = ref.engine.state_dict(ref.state)
-    tail = [r["loss"] for r in ref_out["metrics"][2:]]
+    want_prune = _prune_state(ref)
+    tail = [r["loss"] for r in ref_out["metrics"][stop:]]
     del ref
-    first = _trainer(args + ["--max-steps", "2", "--ckpt-dir",
+    first = _trainer(args + ["--max-steps", str(stop), "--ckpt-dir",
                              str(ckpt_dir)],
                      ckpt_every_steps=2 if name == "train" else 50)
     first.ckpt.keep = 1
@@ -1987,25 +2243,28 @@ def _resume_path(name: str, ckpt_dir: Path) -> dict:
     got = res.engine.state_dict(res.state)
     losses = [r["loss"] for r in out["metrics"]]
     differ = _differing(got, want)
+    same_prune = _prune_state(res) == want_prune
     nbytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*")
                  if f.is_file())
     row = {"restored_at": restored_at, "held": res._resume_held,
            "tail_losses": tail, "resumed_losses": losses,
            "differing_leaves": differ, "saves": saves,
+           "kept_digest": want_prune["kept_digest"],
+           "prune_state_equal": same_prune,
            "restore_s": [t["seconds"] for t in res.ckpt.timings
                          if t["op"] == "restore"],
            "bytes_on_disk": nbytes}
     del res, got, want
     torch.cuda.empty_cache()
-    if restored_at != 2 or losses != tail or differ:
+    if restored_at != stop or losses != tail or differ or not same_prune:
         raise AssertionError(f"resume {name}: {row}")
     return row
 
 
 def resume_phase() -> None:
     """``--resume-phase`` (the child process of phase ``resume``): the
-    three paths' kill and resume under deterministic algorithms, in a
-    temporary directory removed afterwards."""
+    paths' kill and resume under deterministic algorithms, in a temporary
+    directory removed afterwards."""
     import shutil
     import tempfile
     torch.use_deterministic_algorithms(True)
@@ -2094,6 +2353,7 @@ def main() -> None:
     phase_data()
     phase_legs_pipelined()
     phase_memory()
+    phase_prune()
     phase_resume()
     kernels = []
     for name, meta in KERNELS.items():

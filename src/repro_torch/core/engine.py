@@ -77,8 +77,11 @@ class CadenceConfig:
     """When scoring fires. ``static``: the engine's ``FreqSchedule``
     decides. ``drift``: the servo doubles the period (up to ``k_cap``)
     while the drift EMA is below ``target / band`` and halves it above
-    ``target * band``. The prune fields are carried as data: set-level
-    pruning is not ported yet."""
+    ``target * band``. The prune fields gate set-level pruning
+    (``ESEngine.prune_decision``): ``epoch`` re-prunes before every
+    epoch; ``drift`` once the relative drift accumulated since the last
+    prune reaches ``prune_drift_floor``, and at least every
+    ``prune_max_interval`` epochs."""
     kind: str = "static"          # static | drift
     rho: float = 0.8              # drift EMA decay
     target: float = 0.05          # relative |ds| drift the servo tracks
@@ -576,6 +579,41 @@ class ESEngine:
     def session(self, selection_on: bool, pipelined: bool) -> "EpochSession":
         """One epoch's driver (see ``EpochSession``)."""
         return EpochSession(self, selection_on, pipelined)
+
+    # -- set-level (epoch) pruning cadence ------------------------------
+    def prune_decision(self, cad: Optional[CadenceState],
+                       epochs_since_prune: int) -> Tuple[bool, str]:
+        """Does set-level pruning re-run before this epoch? -> (fired,
+        reason), the reason being what the trainer's ``prune_events``
+        record.
+
+        ``epoch`` cadence: always. ``drift`` cadence: once the relative
+        score drift accumulated since the last prune reaches the floor (a
+        converged store keeps its kept-set), with a max-interval backstop
+        on the age of a kept-set. ``epochs_since_prune`` counts the epoch
+        being gated, so ``prune_max_interval = N`` prunes at least every
+        N epochs. Reads ``cad.since_prune`` from the device (one sync).
+        """
+        if self.cadence.prune_kind == "epoch":
+            return True, "epoch-cadence"
+        if epochs_since_prune >= self.cadence.prune_max_interval:
+            return True, "max-interval"
+        if cad is None:
+            return True, "no-cadence-state"
+        if float(cad.since_prune) >= self.cadence.prune_drift_floor:
+            return True, "drift"
+        return False, "drift-below-floor"
+
+    def should_prune(self, cad: Optional[CadenceState],
+                     epochs_since_prune: int) -> bool:
+        return self.prune_decision(cad, epochs_since_prune)[0]
+
+    def reset_prune_drift(self, state: TrainState) -> TrainState:
+        """Zero the drift accumulated since the last prune."""
+        state.cadence = dataclasses.replace(
+            state.cadence, since_prune=torch.zeros_like(
+                state.cadence.since_prune))
+        return state
 
     def state_dict(self, state: TrainState) -> Dict:
         """``state`` as nested dicts of tensors, for a checkpoint: the

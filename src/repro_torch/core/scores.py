@@ -1,6 +1,7 @@
 """Evolved Sampling score state, paper Eq. (3.1) (counterpart of
-``repro/core/scores.py:57-161``, ``ReplicatedStore`` :271-302, the int8
-``QuantizedStore`` :647-959 and ``make_store`` :1312-1325).
+``repro/core/scores.py:57-161``, the store protocol's ``prune_epoch``
+:222-236, ``ReplicatedStore`` :271-309, the int8 ``QuantizedStore``
+:647-1097 and ``make_store`` :1312-1325).
 
     w_i(t) = beta1 * s_i(t-1) + (1-beta1) * l_i(theta(t))
     s_i(t) = beta2 * s_i(t-1) + (1-beta2) * l_i(theta(t))
@@ -9,18 +10,26 @@ The (n,) state is the trainer's only O(n_train) state. Both stores update
 it IN PLACE (the fused kernels write the leaves where they lie), so no
 step copies it. The port runs the replicated layout only: the sharded
 store and the int8 wire raise "not ported yet".
+
+Set-level pruning reads the store on the host once an epoch:
+``prune_snapshot`` copies the leaves to numpy (the store's only device →
+host transfer, after a device sync) and ``prune_epoch`` runs
+``core.pruning`` on that snapshot.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..kernels.score_update.ops import (fused_quant_score_update,
                                         fused_score_update,
                                         quant_grow_scales, quant_ring_slots)
 from ..kernels.score_update.ref import q_gather_1d as _q_gather_1d
+from .pruning import (PruneResult, PruneSnapshot, QuantPruneSnapshot,
+                      prune_epoch_snapshot)
 
 
 @dataclasses.dataclass
@@ -70,7 +79,36 @@ def update_scores(scores: ESScores, sample_ids: torch.Tensor,
     return scores
 
 
-class ReplicatedStore:
+def _host(*tensors: torch.Tensor) -> list:
+    """Numpy copies of ``tensors``. On CUDA the device is synchronised
+    first: pipelined ES leaves the store's and the cadence's last writes
+    on two streams, and a copy on the default stream alone could read the
+    store before the scoring stream's update."""
+    if tensors[0].is_cuda:
+        torch.cuda.synchronize(tensors[0].device)
+    return [t.to("cpu", copy=True).numpy() for t in tensors]
+
+
+class _HostPrune:
+    """The store protocol's host side: one ``prune_epoch`` over any
+    store's ``prune_snapshot``."""
+
+    def prune_epoch(self, method: str, rng: np.random.Generator, scores, *,
+                    prev_losses: Optional[np.ndarray] = None,
+                    ratio: float = 0.2, ucb_c: float = 1.0,
+                    ka_tau: float = 1.0
+                    ) -> Tuple[PruneResult, np.ndarray]:
+        """Set-level kept-set for the next epoch -> (PruneResult, s_full),
+        ``s_full`` being the (n,) s-EMA snapshot the trainer keeps as
+        ``prev_epoch_losses``."""
+        snap = self.prune_snapshot(scores)
+        res = prune_epoch_snapshot(method, rng, snap,
+                                   prev_losses=prev_losses, ratio=ratio,
+                                   ucb_c=ucb_c, ka_tau=ka_tau)
+        return res, snap.full_losses()
+
+
+class ReplicatedStore(_HostPrune):
     """Full (n,) float32 arrays on the one device."""
 
     def init_leaf(self, n: int, device="cuda") -> ESScores:
@@ -100,6 +138,13 @@ class ReplicatedStore:
         from .selection import gumbel_topk_select
         return gumbel_topk_select(weights, k, generator=generator,
                                   gumbel=gumbel)
+
+    def prune_snapshot(self, scores: ESScores) -> PruneSnapshot:
+        """The whole store as one host block."""
+        w, s, seen = _host(scores.w, scores.s, scores.seen)
+        return PruneSnapshot(weights=[w], losses=[s], seen=[seen],
+                             offsets=np.asarray([0], np.int64),
+                             n=int(scores.s.shape[0]))
 
     def checkpoint_spec(self) -> dict:
         """The backend's provenance in a checkpoint's manifest."""
@@ -224,8 +269,35 @@ def _q_update_local(qs: QuantizedScores, local_ids: torch.Tensor,
                           slots, seqs)
 
 
+def _dequant_blocks_host(q_blocks, scale_blocks, block: int, ring,
+                         offsets) -> list:
+    """Host dequant of int8 row blocks, then the ring's residuals applied
+    in recency order (``err_seq``; 0 = empty slot). Rows outside the
+    blocks are ignored. The reference's host arithmetic, step for step
+    (``repro/core/scores.py:1047-1071``)."""
+    rows_all, seq_all, val_all = ring
+    order = np.argsort(seq_all, kind="stable")
+    rows_o, seq_o, val_o = (rows_all[order], seq_all[order],
+                            val_all[order])
+    live = seq_o > 0
+    rows_o, val_o = rows_o[live], val_o[live]
+    out = []
+    for q, sc, off in zip(q_blocks, scale_blocks, offsets):
+        L = len(q)
+        nb = len(sc)
+        blk = -(-L // nb) if nb else block
+        pad = nb * blk - L
+        deq = (np.pad(q.astype(np.float32), (0, pad)).reshape(nb, blk)
+               * sc[:, None]).reshape(-1)[:L]
+        here = (rows_o >= off) & (rows_o < off + L)
+        for r, v in zip(rows_o[here], val_o[here]):
+            deq[r - off] = deq[r - off] + v
+        out.append(deq)
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
-class QuantizedStore:
+class QuantizedStore(_HostPrune):
     """Int8 decorator over the replicated backend: the same store
     protocol with ~4x smaller state (3 int8 rows, per-``block`` scales and
     a ``residual_rows`` error-feedback ring instead of 12 B/row)."""
@@ -275,6 +347,25 @@ class QuantizedStore:
                gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.inner.select(weights, k, generator=generator,
                                  gumbel=gumbel)
+
+    def prune_snapshot(self, qs: QuantizedScores) -> QuantPruneSnapshot:
+        """Residual-corrected dequants of ``s`` and ``w`` as one host block,
+        with the raw codes and scales beside them."""
+        n = qs.s_q.shape[0]
+        blk = self._block(n)
+        s_q, w_q, seen_q, s_sc, w_sc, rows, seq, err_s, err_w = _host(
+            qs.s_q, qs.w_q, qs.seen_q, qs.s_scale, qs.w_scale, qs.err_rows,
+            qs.err_seq, qs.err_s, qs.err_w)
+        offs = [0]
+        losses = _dequant_blocks_host([s_q], [s_sc], blk,
+                                      (rows, seq, err_s), offs)
+        weights = _dequant_blocks_host([w_q], [w_sc], blk,
+                                       (rows, seq, err_w), offs)
+        return QuantPruneSnapshot(
+            weights=weights, losses=losses,
+            seen=[seen_q.astype(np.int32)],
+            offsets=np.asarray(offs, np.int64), n=int(n),
+            q_losses=[s_q], q_scales=[s_sc], q_block=blk)
 
     def checkpoint_spec(self) -> dict:
         return {"kind": "quantized", "block": int(self.block),

@@ -10,12 +10,21 @@
 ``SyncStream`` when prefetch is off, so the epoch loop is the same either
 way and its shutdown is clean.
 
+Set-level pruning: ``apply_pruning(kept, grad_scale)`` installs the
+next epochs' kept-set. A row source prunes through the sampler (dropped
+rows leave the walk); a packed source prunes documents inside rows
+through ``set_kept_docs`` (every row still streams, dropped documents'
+labels and slot ids are masked). The packed source is what the prefetch
+worker reads, so its kept-set is installed only between epochs: after
+the previous epoch's stream has closed and before ``epoch`` builds the
+next one.
+
 Resume: ``cursor``/``state_arrays`` carry the sampler's position, the
-source's fingerprint and a packed source's document kept-set through the
-checkpoint (manifest and extras); ``load_state`` checks them against this
-run, and ``epoch(epoch, start_step=s)`` then continues mid-epoch with the
-batch ids the uninterrupted run would have produced. Not ported yet:
-pruning hooks and growth.
+source's fingerprint and the kept-set (the sampler's, or a packed
+source's documents) through the checkpoint (manifest and extras);
+``load_state`` checks them against this run, and ``epoch(epoch,
+start_step=s)`` then continues mid-epoch with the batch ids and grad
+scales the uninterrupted run would have produced. Not ported yet: growth.
 """
 from __future__ import annotations
 
@@ -48,13 +57,42 @@ class DataPipeline:
         return SyncStream(host_iter, place=self.place)
 
     def batch_at(self, epoch: int, step: int) -> Dict[str, np.ndarray]:
-        """Host batch ``step`` of ``epoch``, built on demand."""
-        return self.source.batch(self.sampler.batch_ids(epoch, step))
+        """Host batch ``step`` of ``epoch``, built on demand with its grad
+        scale (a resumed pipelined session rebuilds its held batch so)."""
+        ids = self.sampler.batch_ids(epoch, step)
+        batch = self.source.batch(ids)
+        if self.sampler.grad_scale is not None:
+            batch["grad_scale"] = self.sampler.grad_scale_for(ids)
+        return batch
 
     @property
     def doc_level(self) -> bool:
         """True when ES identity is the packed document, not the row."""
         return hasattr(self.source, "set_kept_docs")
+
+    def apply_pruning(self, kept: Optional[np.ndarray],
+                      grad_scale: Optional[np.ndarray] = None) -> None:
+        """Install the kept ids (None: every id) and their optional grad
+        scale: through the sampler for a row source, through the source's
+        document mask for a packed one (``kept`` then holds document ids).
+        Call it between epochs, with no stream open."""
+        if self.doc_level:
+            n = self.source.n_docs
+            if kept is None:
+                self.source.set_kept_docs(np.ones(n, bool), None)
+            else:
+                mask = np.zeros(n, bool)
+                mask[np.asarray(kept)] = True
+                self.source.set_kept_docs(mask, grad_scale)
+        else:
+            self.sampler.apply_pruning(kept, grad_scale)
+
+    @property
+    def has_pruning(self) -> bool:
+        """True once a pruning decision is installed (either form)."""
+        if self.doc_level:
+            return not self.source.doc_state_arrays()["doc_kept"].all()
+        return self.sampler.kept is not None
 
     def steps_per_epoch(self, epoch: int = 0) -> int:
         return self.sampler.steps_per_epoch(epoch)

@@ -1,6 +1,7 @@
 """The ES trainer and its CLI (counterpart of ``repro/launch/train.py``:
-``Trainer`` :104-236, ``_resume``/``_checkpoint`` :323-395 and :464-588,
-``main`` :591).
+``Trainer`` :104-265, ``_resume``/``_checkpoint`` :323-395,
+``_prune_for_epoch`` :397-435, ``_record``/``train`` :437-588, ``main``
+:591).
 
     python -m repro_torch.launch.train --arch qwen1.5-0.5b --full --method es \\
         --meta-batch 32 --minibatch 8 --seq-len 512 --n-samples 1024 \\
@@ -13,11 +14,20 @@
     ... --pack --max-segments 4 --meta-batch 16 --minibatch 16
     # the int8 score store
     ... --quant-scores --quant-block 1024
+    # ESWP: ES steps plus a kept-set of 80 % of the samples, re-drawn
+    # before each epoch (or, --prune-cadence drift, when the scores moved)
+    ... --method eswp --prune-cadence drift
+    # set-level pruning alone (baseline steps): infobatch, ucb, ka, random
+    ... --method infobatch
     # checkpoints every 50 steps and at the end; run again to resume
     ... --ckpt-dir /path/to/ckpts
 
-The flags are the JAX CLI's. What the port runs: methods ``es``, ``loss``,
-``order`` and ``baseline``; serial or pipelined ES (``--pipelined``); the
+The flags are the JAX CLI's. What the port runs: the batch-level methods
+``es``, ``loss``, ``order`` and ``baseline``, and the set-level ones
+``eswp`` (ES steps over a pruned set), ``infobatch``, ``ucb``, ``ka`` and
+``random`` (baseline steps over a pruned set), pruned before every epoch
+or on the drift cadence (``--prune-cadence epoch|drift``); serial or
+pipelined ES (``--pipelined``); the
 four scoring cadences (``--freq-schedule fixed|warmup|adaptive|drift``
 with ``--score-every``, ``--gain-floor``, ``--drift-target``); the
 synthetic source or the packed synthetic documents (``--pack``,
@@ -35,11 +45,22 @@ The training path's memory knobs: the model config's ``remat_policy`` and
 reference's trainer passes 0, which turns the cross-entropy's chunks
 off).
 
+Set-level pruning runs on the host at an epoch's start, inside the
+annealing window (``_prune_for_epoch``): the engine's cadence decides
+whether to re-prune, the store's snapshot (one device → host copy) and
+``core/pruning.py`` give the kept-set and InfoBatch's grad scales from
+``np.random.default_rng((seed, epoch, 17))``, and the pipeline installs
+them. An epoch over a kept-set runs fewer steps; the learning-rate and
+scoring schedules are sized from the pruned horizon
+(``planned_steps_per_epoch``). A packed source prunes documents inside
+rows, so its step count does not change.
+
 A checkpoint holds the whole ``TrainState`` (``ESEngine.state_dict``) and
 a manifest whose ``metadata`` has the reference's keys: the counters, the
-store's spec, the data cursor (with ``held`` for a pipelined carry) and the
-cadence. ``prev_epoch_losses`` and ``epochs_since_prune`` ride along for
-set-level pruning, which is not ported yet.
+store's spec, the data cursor (with ``held`` for a pipelined carry and
+the kept-set's digest) and the cadence; its extras hold the kept-set, the
+grad scales and ``prev_epoch_losses``. A mid-epoch resume keeps the
+restored kept-set and does not re-prune.
 
 The epoch loop is the reference's: a session per epoch (pipelined primes
 folded into ``scoring_steps_total``, ``finish`` training the held batch),
@@ -83,12 +104,14 @@ from ..optim.schedule import get_schedule
 class TrainerConfig:
     arch: str = "llama3-8b"
     smoke: bool = True
-    method: str = "es"            # es | loss | order | baseline
+    method: str = "es"            # es | eswp | loss | order | baseline |
+    #                               infobatch | ucb | ka | random
     epochs: int = 4
     meta_batch: int = 32
     minibatch: int = 8
     beta1: float = 0.2
     beta2: float = 0.9
+    pruning_ratio: float = 0.2    # set-level: share of samples pruned
     anneal_ratio: float = 0.05
     n_samples: int = 1024
     seq_len: int = 64
@@ -101,6 +124,8 @@ class TrainerConfig:
     freq_schedule: str = "fixed"  # fixed | warmup | adaptive | drift
     gain_floor: float = 0.5       # adaptive: retained Thm. 3.2 passband
     drift_target: float = 0.05    # drift: relative |ds| the servo tracks
+    prune_cadence: str = "epoch"  # epoch | drift (set-level re-prune gate)
+    prune_max_interval: int = 4   # drift prune cadence: epochs backstop
     fused_scores: bool = True     # score kernel vs the scatter form
     drop_last: bool = True
     log_path: Optional[str] = None
@@ -116,7 +141,6 @@ class TrainerConfig:
     ckpt_dir: Optional[str] = None
     ckpt_every_steps: int = 50
     # not ported yet: each must keep its default (see _check_supported)
-    prune_cadence: str = "epoch"
     shard_scores: bool = False
     quant_wire: bool = False
     host_id: Optional[int] = None
@@ -125,11 +149,12 @@ class TrainerConfig:
     data_path: Optional[str] = None
 
 
-METHODS = ("es", "loss", "order", "baseline")
-BATCH_LEVEL = ("es", "loss", "order")
+SET_LEVEL = {"eswp", "infobatch", "ucb", "ka", "random"}
+BATCH_LEVEL = {"es", "eswp", "loss", "order"}
+METHODS = ("es", "eswp", "loss", "order", "baseline", "infobatch", "ucb",
+           "ka", "random")
 # field -> what it would turn on; each must keep its default
 _NOT_PORTED = {
-    "prune_cadence": "--prune-cadence (set-level pruning)",
     "shard_scores": "--shard-scores (sharded score store)",
     "quant_wire": "--quant-wire (int8 wire of the sharded store)",
     "host_id": "--host-id (multi-host data slicing)",
@@ -209,18 +234,26 @@ class Trainer:
         beta1, beta2 = tc.beta1, tc.beta2
         if tc.method == "loss":
             beta1 = beta2 = 0.0            # paper Eq. (2.3)
-        self.sel_method = tc.method
+        if tc.method == "eswp":
+            beta2 = min(beta2, 0.8)        # the paper's ESWP default
+        # set-level-only methods take baseline steps over their kept-set
+        self.sel_method = tc.method if tc.method in BATCH_LEVEL \
+            else "baseline"
         minibatch = tc.minibatch if tc.method in BATCH_LEVEL \
             else tc.meta_batch
         self.es_cfg = ESConfig(
-            method=tc.method if tc.method != "baseline" else "es",
+            method=self.sel_method if self.sel_method != "baseline"
+            else "es",
             beta1=beta1, beta2=beta2, minibatch=minibatch,
             n_train=self.n_train, fused_scores=tc.fused_scores)
         self.opt_cfg = OptConfig(kind=tc.optimizer, lr=tc.lr,
                                  state_dtype=self.model_cfg.optimizer_dtype)
         self.anneal = AnnealSchedule.from_ratio(tc.epochs, tc.anneal_ratio)
-        steps_first = self.planned_steps_per_epoch()
-        total_steps = steps_first * tc.epochs
+        # an epoch over a kept-set runs fewer steps: the schedules' horizon
+        # is the planned per-epoch count, pruned where pruning is active
+        steps_first = self.planned_steps_per_epoch(0)
+        total_steps = sum(self.planned_steps_per_epoch(pruned=p) * c
+                          for p, c in self._epoch_counts())
         self.schedule = get_schedule(tc.schedule, max(total_steps, 1),
                                      warmup_steps=steps_first // 2)
         self.freq = make_schedule(tc.freq_schedule, tc.score_every,
@@ -232,7 +265,8 @@ class Trainer:
         cadence = CadenceConfig(
             kind="drift" if tc.freq_schedule == "drift" else "static",
             target=tc.drift_target, k_cap=self.freq.target_period,
-            prune_kind=tc.prune_cadence)
+            prune_kind=tc.prune_cadence,
+            prune_max_interval=tc.prune_max_interval)
         self.engine = ESEngine(self.model_cfg, self.es_cfg, self.opt_cfg,
                                self.schedule, freq=self.freq,
                                cadence=cadence, store=self.store)
@@ -242,13 +276,15 @@ class Trainer:
                                       meta_batch=tc.meta_batch)
         self.ckpt = Checkpointer(tc.ckpt_dir) if tc.ckpt_dir else None
         self.metrics_log: list = []
+        self.prune_events: list = []
+        self.epoch_log: list = []
         self.global_step = 0
         self.bp_samples_total = 0.0
         self.scoring_steps_total = 0.0
-        # set-level pruning's fields (not ported): carried through
-        # checkpoints as data
         self.prev_epoch_losses: Optional[np.ndarray] = None
         self.epochs_since_prune = 0
+        # True once this run holds a kept-set (pruned, or restored)
+        self._pruned_in_process = False
         self._cur_sess = None
         self._epoch_consumed = 0       # meta-batches taken this epoch
         self.start_epoch = 0
@@ -257,10 +293,34 @@ class Trainer:
         if self.ckpt and self.ckpt.latest_step() is not None:
             self._resume()
 
-    def planned_steps_per_epoch(self) -> int:
-        """Meta-batches per epoch; a packed source counts rows."""
-        n, mb = len(self.source), self.tc.meta_batch
+    def _steps_for(self, n: int) -> int:
+        mb = self.tc.meta_batch
         return max(1, n // mb if self.tc.drop_last else -(-n // mb))
+
+    def planned_steps_per_epoch(self, epoch: int = 0,
+                                pruned: Optional[bool] = None) -> int:
+        """Meta-batches of ``epoch`` as planned at init: over the kept-set
+        size for a set-level method inside the annealing window, over
+        every row outside it. A packed source counts rows, and prunes
+        documents inside them, so its count never shrinks. The actual
+        count is re-read from the sampler at each epoch's start
+        (``epoch_log``)."""
+        if pruned is None:
+            pruned = (self.tc.method in SET_LEVEL
+                      and self.anneal.selection_active(epoch))
+        n = len(self.source)
+        if pruned and not self.doc_level:
+            n = max(1, int(round((1.0 - self.tc.pruning_ratio) * n)))
+        return self._steps_for(n)
+
+    def _epoch_counts(self):
+        """[(pruned?, number of epochs)] over the whole run."""
+        e = self.tc.epochs
+        if self.tc.method not in SET_LEVEL:
+            return [(False, e)]
+        lo, hi = self.anneal.start_epochs, e - self.anneal.end_epochs
+        active = max(0, hi - lo)
+        return [(True, active), (False, e - active)]
 
     def _place(self, host: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One host batch on the trainer's device, ready to read."""
@@ -286,6 +346,7 @@ class Trainer:
         if cur is not None:
             if "prev_epoch_losses" in extras:
                 self.prev_epoch_losses = extras["prev_epoch_losses"]
+            self._pruned_in_process = self.pipeline.has_pruning
             self._resume_step = cur.get("step", 0)
             self._resume_held = cur.get("held", False)
             # a cursor at the epoch's end with no carry: the epoch ended,
@@ -328,6 +389,41 @@ class Trainer:
         save = self.ckpt.save if final else self.ckpt.save_async
         save(tree, self.global_step, md, extras)
 
+    def _prune_for_epoch(self, epoch: int) -> None:
+        """Set-level selection before ``epoch``, gated by the engine's
+        prune cadence. Outside the annealing window (or for a batch-level
+        method) every sample is back in the walk."""
+        if self.tc.method not in SET_LEVEL \
+                or not self.anneal.selection_active(epoch):
+            self.pipeline.apply_pruning(None)
+            return
+        # counts this epoch, so prune_max_interval = N bounds the gap
+        # between prunes at N epochs
+        self.epochs_since_prune += 1
+        # a run that holds no kept-set (fresh, or resumed from a checkpoint
+        # without one) must prune: skipping would keep every sample
+        if not self._pruned_in_process:
+            fired, reason = True, "first-prune"
+        else:
+            fired, reason = self.engine.prune_decision(
+                self.state.cadence, self.epochs_since_prune)
+        self.prune_events.append({
+            "epoch": epoch, "fired": fired, "reason": reason,
+            "epochs_since_prune": self.epochs_since_prune,
+            "since_prune_drift": float(self.state.cadence.since_prune)})
+        if not fired:
+            return                          # the kept-set carries over
+        rng = np.random.default_rng((self.tc.seed, epoch, 17))
+        res, s_host = self.store.prune_epoch(
+            self.tc.method, rng, self.state.scores,
+            prev_losses=self.prev_epoch_losses,
+            ratio=self.tc.pruning_ratio)
+        self.pipeline.apply_pruning(res.kept, res.grad_scale)
+        self.prev_epoch_losses = s_host.copy()
+        self.epochs_since_prune = 0
+        self._pruned_in_process = True
+        self.state = self.engine.reset_prune_drift(self.state)
+
     def _record(self, epoch: int, m: Dict[str, Any], dur: float,
                 data_wait: float) -> bool:
         """Book one trained step (``dur`` and ``data_wait`` in seconds);
@@ -340,6 +436,9 @@ class Trainer:
             "step": self.global_step, "epoch": epoch,
             "loss": float(m["loss"]), "scored": scored,
             "bp_samples_total": self.bp_samples_total,
+            # the age of this epoch's kept-set in epochs (0: pruned
+            # before this epoch)
+            "epochs_since_prune": self.epochs_since_prune,
             "step_time": dur, "data_wait": data_wait})
         if self.ckpt and self.global_step % self.tc.ckpt_every_steps == 0:
             self._checkpoint(epoch)
@@ -354,13 +453,23 @@ class Trainer:
         for epoch in range(self.start_epoch, tc.epochs):
             resumed = epoch == self.start_epoch
             start_step = self._resume_step if resumed else 0
+            resume_held = resumed and self._resume_held
+            # between epochs, with no stream open: a packed source's
+            # kept-set is what the next epoch's prefetch worker reads.
+            # A mid-epoch resume keeps the restored kept-set: re-pruning
+            # would read mid-epoch scores and leave the uninterrupted run
+            if start_step == 0 and not resume_held:
+                self._prune_for_epoch(epoch)
             selection_on = (self.anneal.selection_active(epoch)
                             and self.sel_method != "baseline")
+            self.epoch_log.append({
+                "epoch": epoch,
+                "steps_per_epoch": self.pipeline.steps_per_epoch(epoch),
+                "selection_on": selection_on})
             sess = self.engine.session(selection_on, tc.pipelined)
             self._cur_sess = sess
             self._epoch_consumed = start_step
-            if resumed and self._resume_held and start_step > 0 \
-                    and sess.pipelined:
+            if resume_held and start_step > 0 and sess.pipelined:
                 # the checkpointed carry: the restored pending_w was scored
                 # for this batch, so no prime runs
                 sess.resume_held(self._place(
@@ -410,6 +519,8 @@ class Trainer:
             "scoring_steps_total": self.scoring_steps_total,
             "wall_time": time.time() - t_start,
             "device": str(self.device),
+            "prune_events": self.prune_events,
+            "epoch_log": self.epoch_log,
             "metrics": self.metrics_log,
         }
         if tc.log_path:
@@ -480,6 +591,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="adaptive schedule: retained Thm. 3.2 passband")
     ap.add_argument("--drift-target", type=float, default=0.05,
                     help="drift schedule: relative |ds| the servo tracks")
+    ap.add_argument("--prune-cadence", default="epoch",
+                    choices=["epoch", "drift"],
+                    help="set-level re-prune gate: every epoch, or when "
+                    "the observed score drift re-arms it")
     ap.add_argument("--no-fused-scores", dest="fused_scores",
                     action="store_false",
                     help="scatter score update instead of the score kernel")
@@ -509,7 +624,6 @@ def build_parser() -> argparse.ArgumentParser:
                     help="batches the background thread runs ahead")
     # flags of the JAX CLI that the port does not run yet: accepted, and
     # they raise "not ported yet" unless left at their defaults
-    ap.add_argument("--prune-cadence", default="epoch")
     ap.add_argument("--shard-scores", action="store_true")
     ap.add_argument("--quant-wire", action="store_true")
     ap.add_argument("--grad-compression", action="store_true")
@@ -526,7 +640,7 @@ def main(argv=None) -> Dict[str, Any]:
                           if k in fields})
     out = Trainer(tc).train()
     print(json.dumps({k: v for k, v in out.items()
-                      if k != "metrics"}, indent=1))
+                      if k not in ("metrics", "epoch_log")}, indent=1))
     return out
 
 

@@ -1,12 +1,14 @@
-"""Shared set-up of the port's step-parity tests: one JAX ``ESEngine``
-and one port ``ESEngine`` on qwen1.5 smoke at float32, the same converted
-parameters and the same non-trivial score store, and the helpers that
-draw JAX's selection noise and compare the two states."""
+"""Shared set-up of the port's tests: one JAX ``ESEngine`` and one port
+``ESEngine`` on qwen1.5 smoke at float32, the same converted parameters
+and the same non-trivial score store, the helpers that draw JAX's
+selection noise and compare the two states, and ``one_torch_thread``,
+which every port test module imports."""
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs.registry import get_smoke_config
@@ -26,6 +28,19 @@ from repro_torch.optim.schedule import get_schedule as t_get_schedule
 
 B, b, N, S = 16, 4, 64, 32
 ATOL, RTOL = 1e-5, 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for the importing test module, restored
+    after it. The tests run smoke shapes, where the pool only contends:
+    the suite runs in parallel worker processes on the CPU, and there
+    each process's spinning pool threads slowed a smoke trainer's run
+    from under a second to a minute."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def smoke_cfg():

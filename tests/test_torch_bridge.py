@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.configs.registry import get_smoke_config
 from repro.models.transformer import init_lm
 from repro_torch.bridge import params_from_jax, params_to_numpy

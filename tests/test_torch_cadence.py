@@ -12,6 +12,7 @@ import jax
 import numpy as np
 import pytest
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from _torch_parity import (assert_cadence_close, assert_state_close,
                            host_batches, jax_batch, jax_gumbel, make_pair,
                            torch_batch)

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.checkpoint.checkpointer import Checkpointer as JaxCheckpointer
 from repro.configs.registry import get_smoke_config
 from repro.launch.train import Trainer as JaxTrainer

@@ -5,7 +5,7 @@ bounded backpressure, clean shutdown mid-stream, worker errors re-raised
 in the consumer, no leaked threads; ``tests/test_pipeline.py:125-183``),
 on the CPU placer; every wait here times out within seconds. Then
 ``DataPipeline.epoch`` against JAX's (the same ids and arrays, synthetic
-and packed), the trainer with prefetch on and off (bitwise-equal losses),
+and packed, also after ``apply_pruning`` with grad scales), the trainer with prefetch on and off (bitwise-equal losses),
 and ``Trainer.eval_mean_loss`` against the JAX trainer's on the same
 parameters (1e-5 relative: the kernels' plain versions against XLA's
 float32 sums).
@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from _torch_parity import smoke_cfg
 from repro.data.pipeline import DataPipeline as JaxPipeline
 from repro.data.pipeline import PackedSource as JaxPacked
@@ -169,12 +170,24 @@ def _sources(kind):
 
 @pytest.mark.parametrize("kind", ["synthetic", "packed"])
 @pytest.mark.parametrize("prefetch", [True, False])
-def test_pipeline_epoch_matches_jax(kind, prefetch):
+@pytest.mark.parametrize("pruned", [False, True])
+def test_pipeline_epoch_matches_jax(kind, prefetch, pruned):
+    """Batches of two epochs from step 1 and ``batch_at``, also after
+    ``apply_pruning`` with grad scales (rows leave the walk; a packed
+    source masks documents inside its rows)."""
     jsrc, tsrc = _sources(kind)
     jp = JaxPipeline(jsrc, 8, seed=1, prefetch=False, place=lambda b: b)
     tp = DataPipeline(tsrc, 8, seed=1, prefetch=prefetch,
                       place=HostPlacer())
     assert tp.doc_level == jp.doc_level == (kind == "packed")
+    if pruned:
+        n = tsrc.n_docs if tp.doc_level else len(tsrc)
+        rng = np.random.default_rng(4)
+        kept = np.sort(rng.choice(n, 3 * n // 4, replace=False))
+        scale = rng.choice([1.0, 1.25], n).astype(np.float32)
+        for p in (jp, tp):
+            p.apply_pruning(kept, scale)
+        assert tp.has_pruning and jp.has_pruning
     assert tp.steps_per_epoch(0) == jp.steps_per_epoch(0) > 1
     for epoch in range(2):
         with jp.epoch(epoch, 1) as js, tp.epoch(epoch, 1) as ts:

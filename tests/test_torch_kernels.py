@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.core.scores import ESScores, make_store
 from repro.kernels.flash_attn.flash_attn import flash_attention
 from repro.kernels.flash_attn.ops import gqa_flash_attention as jax_gqa

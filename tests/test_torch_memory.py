@@ -27,6 +27,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.configs.registry import get_smoke_config
 from repro.models.attention import mha as jax_mha
 from repro.models.layers import ShardCtx

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.configs.registry import get_smoke_config
 from repro.models.layers import ShardCtx
 from repro.models.transformer import init_lm, lm_per_sample_loss

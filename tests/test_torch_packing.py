@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.configs.registry import get_smoke_config
 from repro.core.engine import ESConfig, ESEngine, init_train_state
 from repro.core.scores import ESScores

@@ -13,6 +13,7 @@ import jax
 import numpy as np
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from _torch_parity import (ATOL, RTOL, B, assert_state_close, host_batches,
                            jax_batch, jax_gumbel, make_pair, torch_batch)
 from repro.core.selection import gumbel_topk_select

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.configs.registry import get_smoke_config
 from repro.core import scores as jscores
 from repro.kernels.score_update.score_update import \

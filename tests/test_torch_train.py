@@ -15,6 +15,7 @@ import jax
 import numpy as np
 import pytest
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.configs.registry import get_smoke_config
 from repro.launch.train import Trainer as JaxTrainer
 from repro.launch.train import TrainerConfig as JaxTrainerConfig
@@ -123,11 +124,11 @@ def test_default_device_raises_without_gpu():
         ttrain.Trainer(ttrain.TrainerConfig(**COMMON))
 
 
-@pytest.mark.parametrize("flags", [["--prune-cadence", "drift"],
+@pytest.mark.parametrize("flags", [["--grad-compression"],
                                    ["--shard-scores"],
                                    ["--quant-scores", "--quant-wire"],
                                    ["--source", "tokens"],
-                                   ["--data-path", "x"], ["--method", "eswp"],
+                                   ["--data-path", "x"], ["--host-id", "1"],
                                    ["--num-hosts", "2"]])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="not ported"):
