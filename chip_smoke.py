@@ -19,7 +19,10 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    pin; the three int8 store kernels (grow/re-code, ring slots, apply)
    one by one, with a warm ring, slots >= R and growing and steady
    scales, and the whole int8 store update against the plain versions
-   bitwise, over chains of updates with and without growth; the two
+   bitwise, over chains of updates with and without growth; both stores
+   grown on the card (f32 and int8 at n = 65,536 and 2^24) bitwise to
+   the same grow of a host copy, then one kernel update over old and new
+   rows against the plain versions; the two
    segment-sum kernels (forward and gradient) on path A's batch and on
    random ids up to 32,771 tokens a row and 150 slots, unaligned pointers
    and rows shorter than a vector, each case run twice and compared
@@ -60,6 +63,21 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    for the pruned paths the prune events the reference's rules give, the
    kept-set's size, each epoch's step count as the sampler gives it and
    InfoBatch's weighted mean against the unweighted one on one batch;
+   then ``train_tokens`` (S1's samples written as a uint16 token file in
+   a temporary directory, ``--source tokens --num-hosts 2 --host-id 1``:
+   each step's ids are host 1's half of the global meta-batch);
+   ``serve`` (``Server.generate`` on full-width qwen1.5-0.5b: batch 8,
+   prompts of 512, 64 greedy tokens; one flash launch a layer in the
+   prefill and nothing else; the prefill's logits against the plain
+   prefill's on the card and 4 teacher-forced decode steps against the
+   full forward, both within 5e-2; prefill ms, ms per decoded token,
+   tokens/s, peak memory); ``service`` (the online service's CLI at full
+   width: 256 samples of 512 in a StreamingSource, meta-batch 32,
+   minibatch 8, 2 epochs, 8 candidates every 2 steps, tau 1, drains of
+   8: each drain's launches (24 flash, one xent call, one score update
+   when it admits), the grown store, sampler and source, epoch 1's steps
+   over the admitted rows, a decode from the live weights; the admission
+   latency);
 7. ``legs``: where a step's time goes (serial-ES legs and a profiled step;
    the packed step's legs and the segment-sum kernels' launches and device
    time inside its forward + backward; the int8 store update against the
@@ -89,7 +107,10 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    ``train_eswp`` killed at step 8 (mid-epoch 1, after a prune) and
    resumed to 12: the tail's losses, every leaf of the final state, the
    kept-set's digest and ``prev_epoch_losses`` bitwise equal, with the
-   checkpoint's snapshot, write and restore times and its bytes on disk.
+   checkpoint's snapshot, write and restore times and its bytes on disk;
+   and ``train_grown`` (S1 over 64 samples in a StreamingSource, a step
+   hook appending 32 rows and growing at step 1) killed at 2 and resumed
+   to 4: the same, and the grown store, source and cursor restored.
    It runs in a child process (``--resume-phase``) under
    ``torch.use_deterministic_algorithms(True)`` and
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, with its checkpoints in a
@@ -109,6 +130,7 @@ slot count reports ``"refused"``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -199,6 +221,7 @@ PER_UNIT = {
     "train_infobatch": {"fused_score_update": 1},
     "train_packed_eswp": {"segment_sum": 1, "segment_sum_grad": 1,
                           "fused_score_update": 1},
+    "train_tokens": SCORING_LEG,
 }
 
 
@@ -752,6 +775,54 @@ def check_grow(n: int, B: int, R: int, block: int, scale: float) -> float:
     return 0.0
 
 
+def check_grow_store(kind: str, n: int, n_new: int, B: int = 32) -> float:
+    """A warm store of ``n`` rows grown by ``n_new`` on the card (f32, or
+    int8 with blocks of 1,024 and a ring of 1,024), held bitwise to the
+    same grow of a host copy and to its own old rows; then one update
+    over old and new rows through the kernels (the f32 kernel, or the int8
+    store's three) against the plain versions on a copy on the card."""
+    from repro_torch.core.scores import make_store
+    from repro_torch.kernels.score_update.ref import score_update_ref
+    int8 = kind == "int8"
+    st = make_store(None, quantize=int8, block=1024, residual_rows=1024)
+    fields = QFIELDS if int8 else ("s", "w", "seen")
+    g = _gen(n + n_new)
+    leaf = st.init_leaf(n, "cuda")
+    warm = torch.randperm(n, device="cuda", generator=g)[:B]
+    st.update(leaf, warm.to(torch.int32),
+              2.0 * torch.rand(B, device="cuda", generator=g), 0.2, 0.9)
+    before = {f: getattr(leaf, f).clone() for f in fields}
+    host = type(leaf)(**{f: getattr(leaf, f).cpu() for f in fields})
+    _, grown = st.grow(leaf, n_new)
+    _, plain = st.grow(host, n_new)
+    torch.cuda.synchronize()
+    what = f"{kind} grow n={n} +{n_new}"
+    for f in fields:
+        got, old = getattr(grown, f), before[f]
+        if not torch.equal(got.cpu(), getattr(plain, f)):
+            raise AssertionError(f"{what}: {f} differs from the host grow")
+        if not torch.equal(got[:old.shape[0]], old):
+            raise AssertionError(f"{what}: old {f} changed")
+    ids = torch.cat([torch.randperm(n, device="cuda", generator=g)[:B - 8],
+                     n + torch.randperm(n_new, device="cuda",
+                                        generator=g)[:8]]).to(torch.int32)
+    losses = 3.0 * torch.rand(B, device="cuda", generator=g)
+    if int8:
+        want = _q_clone(grown)
+        st.update(grown, ids, losses, 0.2, 0.9)
+        plain_store_update(want, ids, losses, 1024)
+        torch.cuda.synchronize()
+        return _q_compare(f"{what}, then an update", grown, want)
+    want = [x.clone() for x in (grown.s, grown.w, grown.seen)]
+    st.update(grown, ids, losses, 0.2, 0.9)
+    score_update_ref(*want, ids, losses, beta1=0.2, beta2=0.9)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in
+               zip((grown.s, grown.w, grown.seen), want)):
+        raise AssertionError(f"{what}: the update after it differs")
+    return 0.0
+
+
 def check_slots(R: int, B: int, warm: int, n: int = 4096) -> float:
     """The ring-slot kernel against its plain version: ``warm`` distinct
     stamps (the rest 0) in random slots, a third of the batch masked."""
@@ -841,6 +912,13 @@ def phase_check() -> dict:
     # the whole int8 store update (the three kernels) against the plain
     # versions: the path's shape, B > R with duplicates and masked ids,
     # and a chain of 8 updates with and without growth
+    # both stores grown on the card (a partial tail block of new rows on
+    # the int8 store at 2^24), then one kernel update over old and new rows
+    errs["grow_then_update"] = max(
+        check_grow_store("f32", 65536, 100),
+        check_grow_store("f32", 1 << 24, 4096),
+        check_grow_store("int8", 65536, 1500),
+        check_grow_store("int8", 1 << 24, 1000))
     errs["int8_store_update"] = max(
         check_store(65536, 32, 1024, 1024, (True, False)),
         check_store(1000, 100, 64, 16, (True, False)),
@@ -1396,14 +1474,17 @@ def _steps(args) -> int:
     return int(rev[rev.index("--max-steps") - 1])
 
 
-def phase_path(name: str) -> dict:
+def phase_path(name: str, args=None, watch=None) -> dict:
     """Run one path through the trainer the CLI builds (``Trainer.train``)
-    with every launch count set to 0 just before and read just after."""
-    args = PATH_ARGS[name]
+    with every launch count set to 0 just before and read just after.
+    ``args`` replaces the path's own; ``watch(tr)``, called on the built
+    trainer, returns a check called as ``check(tr, out)`` after the run."""
+    args = args or PATH_ARGS[name]
     wrappers = _wrappers()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     tr = _trainer(args)
+    check = watch(tr) if watch else None
     for fn in wrappers.values():
         fn.launches = 0
     out = tr.train()
@@ -1446,6 +1527,8 @@ def phase_path(name: str) -> dict:
                                  f"over {units} units, expected {want}")
     if name in PRUNE_PATHS:
         check_pruning(name, tr, out)
+    if check:
+        check(tr, out)
     del tr
     torch.cuda.empty_cache()
     return launches
@@ -1531,6 +1614,281 @@ def check_pruning(name: str, tr, out) -> None:
     if not ok:
         raise AssertionError(f"{name}: kept {kept} of {tr.n_train}, steps "
                              f"per epoch {spe}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: serving, the online service, a token file over two hosts
+# ---------------------------------------------------------------------------
+
+SERVE_B, SERVE_P, SERVE_GEN = 8, 512, 64
+TEACHER_STEPS = 4          # teacher-forced decode steps held to the forward
+# the scoring forward's bf16 tolerance (phase 5), per logit: the logits are
+# a bf16 product, so two forwards that differ in rounding differ by whole
+# bf16 ulps of each logit: |err| <= MODEL_TOL * max(1, |logit|)
+MODEL_TOL = 5e-2
+
+
+def logit_errs(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(max |err|, max |err| / max(1, |want|)) of two logit tensors."""
+    err = (got - want).abs()
+    return (err.max().item(),
+            (err / want.abs().clamp_min(1.0)).max().item())
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The prefill's attention through the flash kernel's plain version
+    (``kernels/flash_attn/ref.py``) on the card: the plain prefill that
+    the kernel's is held to."""
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    from repro_torch.models import attention
+    kernel = attention.gqa_flash_attention
+    attention.gqa_flash_attention = flash_attention_ref
+    try:
+        yield
+    finally:
+        attention.gqa_flash_attention = kernel
+
+
+def _expect(what: str, got: dict, want: dict) -> None:
+    """Every wrapper's launches in ``got`` as ``want`` says (absent: 0)."""
+    bad = {k: v for k, v in got.items() if v != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{what}: launches {bad}, expected {want}")
+
+
+def phase_serve() -> dict:
+    """``Server.generate`` on full-width qwen1.5-0.5b: batch 8, prompts of
+    512 tokens, 64 greedy tokens. The prefill launches the flash kernel
+    once a layer and nothing else; its logits are held to the plain
+    prefill's on the card, and a few teacher-forced decode steps to the
+    full (training-path) forward over the same prefix. Times: the prefill
+    alone, the whole ``generate`` (host clock to a device sync), the
+    decode's ms a token from the two, tokens/s, peak memory, and the
+    device time and launches of one prefill and of one decode step
+    (torch.profiler)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.layers import unembed_matrix
+    from repro_torch.models.losses import last_token_logits
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    from repro_torch.models.transformer import lm_hidden, tree_leaves
+    cfg = get_config("qwen1.5-0.5b")
+    B, P, G = SERVE_B, SERVE_P, SERVE_GEN
+    wrappers = _wrappers()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server = Server(cfg, device="cuda", seed=0)
+    params = server.params
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=_gen(7),
+                            device="cuda", dtype=torch.int32).cpu().numpy()
+    for fn in wrappers.values():
+        fn.launches = 0
+    out = server.generate(prompts, G)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    _expect("serve", launches, {"gqa_flash_attention": cfg.num_layers})
+    if out.shape != (B, P + G) or not ((out >= 0)
+                                       & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"serve: tokens of shape {out.shape}")
+    tokens = torch.as_tensor(prompts, device="cuda")
+
+    def run_prefill():
+        with torch.no_grad():
+            return prefill(cfg, params, {"tokens": tokens},
+                           init_cache(cfg, B, P + G, device="cuda"))
+
+    prefill_ms = wall_ms(run_prefill, 5)
+    gen_ms = wall_ms(lambda: server.generate(prompts, G), 3)
+    with torch.no_grad():
+        fast, cache = run_prefill()
+        with plain_attention():
+            plain, _ = run_prefill()
+        prefill_err = logit_errs(fast, plain)
+        seq = torch.as_tensor(out, device="cuda")
+        decode_errs = []
+        for t in range(TEACHER_STEPS):
+            logits, cache = decode_step(cfg, params,
+                                        seq[:, P + t:P + t + 1], cache,
+                                        P + t)
+            h = lm_hidden(cfg, params, seq[:, :P + t + 1])
+            full = last_token_logits(h[:, -1:],
+                                     unembed_matrix(params["embed"]))
+            decode_errs.append(logit_errs(logits, full))
+        # one more decode step, rewritten at the same position each call
+        pos = torch.full((1,), P + TEACHER_STEPS, dtype=torch.long,
+                         device="cuda")
+        step_tok = seq[:, P + TEACHER_STEPS:P + TEACHER_STEPS + 1]
+        decode_trace = device_trace(
+            lambda: decode_step(cfg, params, step_tok, cache, pos), 10)
+    prefill_trace = device_trace(run_prefill, 5)
+    torch.cuda.synchronize()
+    row = {"phase": "serve", "batch": B, "prompt_len": P, "generated": G,
+           "launches": launches, "prefill_ms": prefill_ms,
+           "generate_ms": gen_ms,
+           "decode_ms_per_token": (gen_ms - prefill_ms) / (G - 1),
+           "tokens_per_s": B * G / (gen_ms / 1e3),
+           "max_memory_allocated": peak,
+           "kv_cache_bytes": sum(x.numel() * x.element_size()
+                                 for x in cache["kv"].values()),
+           "param_bytes": sum(x.numel() * x.element_size()
+                              for x in tree_leaves(params)),
+           "prefill_trace": prefill_trace, "decode_trace": decode_trace,
+           "prefill_max_abs_err": prefill_err[0],
+           "prefill_max_rel_err": prefill_err[1],
+           "decode_max_abs_err": [e[0] for e in decode_errs],
+           "decode_max_rel_err": [e[1] for e in decode_errs],
+           "finite": bool(torch.isfinite(fast).all()),
+           "sample_output": out[0, P:P + 8].tolist(), "card": smi_line()}
+    emit(row)
+    if not (row["finite"] and max(e[1] for e in [prefill_err, *decode_errs])
+            <= MODEL_TOL):
+        raise AssertionError(f"serve: prefill {prefill_err}, decode "
+                             f"{decode_errs} against {MODEL_TOL}")
+    del server, params, cache, fast, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+# the service's CLI at full width: 256 synthetic samples of 512, 2 epochs
+# of meta-batch 32, 8 candidates every 2 steps, each drain of 8 scored on
+# the live weights and admitted against tau = 1
+SERVICE_ARGV = ["--arch", "qwen1.5-0.5b", "--full", "--epochs", "2",
+                "--n-samples", "256", "--seq-len", "512", "--meta-batch",
+                "32", "--minibatch", "8", "--tau", "1.0", "--max-batch", "8",
+                "--submit-every", "2", "--submit-batch", "8", "--device",
+                "cuda"]
+# a drain: the candidates' scoring forward, and the install of the
+# admitted rows' losses (none when nothing is admitted)
+DRAIN = {"gqa_flash_attention": 24, "fused_xent": 1}
+
+
+def phase_service() -> dict:
+    """The online service over a StreamingSource: each drain's launches
+    (the scoring forward; one f32 score update when it admits), the grown
+    store, sampler and source, epoch 1's step count over the rows admitted
+    in epoch 0, the admitted rows' ``seen``, and a decode from the live
+    weights at the end. Reports the admission latency."""
+    from repro_torch.launch import service
+    wrappers = _wrappers()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = service.build_parser().parse_args(SERVICE_ARGV)
+    tr, svc, tok, lab = service.build(args)
+    n0, mb = args.n_samples, args.meta_batch
+    drains, marks = [], []
+    score, apply = svc.admission.score_fn, svc._apply
+
+    def score_fn(tokens, labels):
+        marks.append({k: w.launches for k, w in wrappers.items()})
+        return score(tokens, labels)
+
+    def apply_fn(res):
+        n = apply(res)
+        drains.append({"epoch": svc._cur_epoch, "step": tr.global_step,
+                       "admitted": n, "launches": {
+                           k: w.launches - marks[-1][k]
+                           for k, w in wrappers.items()}})
+        return n
+
+    svc.admission.score_fn, svc._apply = score_fn, apply_fn
+    service.feed(svc, tok, lab, args.submit_every, args.submit_batch)
+    for fn in wrappers.values():
+        fn.launches = 0
+    out = tr.train()
+    svc.flush()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    for d in drains:
+        _expect(f"service drain at step {d['step']}", d["launches"],
+                {**DRAIN, "fused_score_update": int(d["admitted"] > 0)})
+    steps = out["steps"]
+    want = {k: SCORING_LEG.get(k, 0) * steps + sum(
+        d["launches"][k] for d in drains) for k in wrappers}
+    _expect("service", launches, want)
+    n_adm = svc.admission.admitted
+    n0_adm = sum(d["admitted"] for d in drains if d["epoch"] == 0)
+    spe = [e["steps_per_epoch"] for e in out["epoch_log"]]
+    sizes = (tr.n_train, tr.es_cfg.n_train, tr.state.scores.s.shape[0],
+             tr.sampler.n_samples, len(tr.source))
+    seen = tr.state.scores.seen[n0:]
+    losses = [r["loss"] for r in out["metrics"]]
+    live = svc.server.params is tr.state.params
+    dec = svc.decode(tok[:2, :16], 8)
+    stats = svc.admission.latency_stats()
+    emit({"phase": "service", "argv": SERVICE_ARGV, "steps": steps,
+          "steps_per_epoch": spe, "submitted": svc.admission.submitted,
+          "admitted": n_adm, "admitted_epoch0": n0_adm, "rows": sizes,
+          "drains": drains, "admit_log": svc.admit_log,
+          "launches": launches, "losses": losses,
+          "step_ms": [r["step_time"] * 1e3 for r in out["metrics"]],
+          "live_weights": live, "decode_shape": list(dec.shape),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          **stats, "card": smi_line()})
+    if len(drains) < 4 or sizes != (n0 + n_adm,) * 5 or \
+            tr.sampler.population(1) != n0 + n0_adm or \
+            spe != [n0 // mb, (n0 + n0_adm) // mb] or \
+            steps != sum(spe) or not bool((seen >= 1).all()) or \
+            not all(map(math.isfinite, losses)) or not live or \
+            dec.shape != (2, 24):
+        raise AssertionError(f"service: {len(drains)} drains, rows "
+                             f"{sizes}, steps {spe}, live {live}")
+    del tr, svc
+    torch.cuda.empty_cache()
+    return launches
+
+
+# S1's shape from a token file, as host 1 of 2 (16 of each 32 rows)
+TOKENS_ARGS = TRAIN_ARGS + ["--source", "tokens", "--num-hosts", "2",
+                            "--host-id", "1"]
+
+
+def phase_train_tokens() -> dict:
+    """Path ``train_tokens``: S1's synthetic samples (64-token vocabulary)
+    written as one uint16 token file in a temporary directory, trained
+    from it as host 1 of 2: each step's sample ids must be the second
+    half of the sampler's global meta-batch."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.data.pipeline import SyntheticSource, write_token_bin
+    n, S = 1024, 512
+    src = SyntheticSource(n_samples=n, seq_len=S, vocab_size=64, seed=0)
+    flat = src.batch(np.arange(n))["tokens"].reshape(-1)
+    with tempfile.TemporaryDirectory() as d:
+        path = write_token_bin(Path(d) / "corpus.bin",
+                               np.concatenate([flat, flat[:1]]))
+
+        def watch(tr):
+            seen = []
+            inner = tr.engine.session
+
+            def session(*a, **k):
+                sess = inner(*a, **k)
+                step = sess.step
+
+                def spy(state, batch):
+                    seen.append(batch["sample_ids"].cpu().numpy().copy())
+                    return step(state, batch)
+                sess.step = spy
+                return sess
+            tr.engine.session = session
+
+            def check(tr, out):
+                half = tr.tc.meta_batch // 2
+                for b, ids in enumerate(seen):
+                    glob = tr.sampler.batch_ids(0, b)
+                    if not np.array_equal(ids, glob[half:]):
+                        raise AssertionError(f"train_tokens step {b}: ids "
+                                             f"not host 1's half")
+                if (tr.host_id, tr.num_hosts) != (1, 2) or \
+                        len(seen) != out["steps"] or len(tr.source) != n:
+                    raise AssertionError("train_tokens: hosts or steps")
+            return check
+
+        return phase_path("train_tokens",
+                          TOKENS_ARGS + ["--data-path", str(path)], watch)
 
 
 # ---------------------------------------------------------------------------
@@ -2189,9 +2547,40 @@ def phase_prune() -> None:
 # ---------------------------------------------------------------------------
 
 # path -> the step its interrupted run stops at: 2 of 4, or mid-epoch 1 of
-# train_eswp (8 of 12 steps), after its second prune decision
+# train_eswp (8 of 12 steps), after its second prune decision; train_grown
+# at the end of epoch 0, after its grow
 RESUME_PATHS = {"train": 2, "train_pipelined": 2, "train_quant": 2,
-                "train_eswp": 8}
+                "train_eswp": 8, "train_grown": 2}
+# S1 over 64 samples in a StreamingSource: a step hook appends 32 rows and
+# grows at step 1, so epoch 1 walks 96 rows (3 steps); 4 steps in all
+GROWN_ARGS = TRAIN_ARGS + ["--n-samples", "64", "--epochs", "2",
+                           "--max-steps", "4"]
+
+
+def _grown_trainer(args, **tc_fields):
+    """The trainer of ``args`` over a StreamingSource, with a step hook
+    that appends 32 fixed rows and grows at step 1 (in epoch 0)."""
+    from repro_torch.data.pipeline import StreamingSource, get_source
+    from repro_torch.launch import train
+    from repro_torch.launch.service import _synthetic_stream
+    ns = train.build_parser().parse_args(args)
+    fields = set(train.TrainerConfig.__dataclass_fields__)
+    tc = train.TrainerConfig(**{**{k: v for k, v in vars(ns).items()
+                                    if k in fields}, **tc_fields})
+    tr = train.Trainer(tc, source=StreamingSource(get_source(
+        "synthetic", n_samples=tc.n_samples, seq_len=tc.seq_len,
+        vocab_size=64, seed=tc.seed)))
+    tok, lab = _synthetic_stream(tc.seq_len, 64, seed=2, n=32)
+
+    def grow_at_step_1(t, epoch):
+        if t.global_step == 1:
+            t.grow(len(t.source.append(tok, lab)), epoch)
+    tr.step_hooks.append(grow_at_step_1)
+    return tr
+
+
+RESUME_ARGS = {**PATH_ARGS, "train_grown": GROWN_ARGS}
+RESUME_BUILD = {"train_grown": _grown_trainer}
 
 
 def _differing(got: dict, want: dict) -> list:
@@ -2220,43 +2609,50 @@ def _resume_path(name: str, ckpt_dir: Path) -> dict:
     ``prev_epoch_losses`` must be bitwise equal. The interrupted run of
     ``train`` also saves asynchronously at step 2 (then the final save
     overwrites that step)."""
-    args, stop = PATH_ARGS[name], RESUME_PATHS[name]
-    ref = _trainer(args)
+    args, stop = RESUME_ARGS[name], RESUME_PATHS[name]
+    build = RESUME_BUILD.get(name, _trainer)
+    ref = build(args)
     ref_out = ref.train()
     want = ref.engine.state_dict(ref.state)
     want_prune = _prune_state(ref)
+    want_rows = (ref.n_train, len(ref.source), ref.pipeline.cursor(0, 0))
     tail = [r["loss"] for r in ref_out["metrics"][stop:]]
     del ref
-    first = _trainer(args + ["--max-steps", str(stop), "--ckpt-dir",
-                             str(ckpt_dir)],
-                     ckpt_every_steps=2 if name == "train" else 50)
+    first = build(args + ["--max-steps", str(stop), "--ckpt-dir",
+                          str(ckpt_dir)],
+                  ckpt_every_steps=2 if name == "train" else 50)
     first.ckpt.keep = 1
     first.train()
     saves = first.ckpt.timings
     del first
     torch.cuda.empty_cache()
-    res = _trainer(args + ["--ckpt-dir", str(ckpt_dir)])
+    res = build(args + ["--ckpt-dir", str(ckpt_dir)])
     res.ckpt.keep = 1
     restored_at = res.global_step
+    restored_rows = res.n_train
     out = res.train()
     torch.cuda.synchronize()
     got = res.engine.state_dict(res.state)
     losses = [r["loss"] for r in out["metrics"]]
     differ = _differing(got, want)
     same_prune = _prune_state(res) == want_prune
+    same_rows = (res.n_train, len(res.source),
+                 res.pipeline.cursor(0, 0)) == want_rows
     nbytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*")
                  if f.is_file())
     row = {"restored_at": restored_at, "held": res._resume_held,
            "tail_losses": tail, "resumed_losses": losses,
            "differing_leaves": differ, "saves": saves,
            "kept_digest": want_prune["kept_digest"],
-           "prune_state_equal": same_prune,
+           "prune_state_equal": same_prune, "restored_rows": restored_rows,
+           "rows": want_rows[:2], "rows_equal": same_rows,
            "restore_s": [t["seconds"] for t in res.ckpt.timings
                          if t["op"] == "restore"],
            "bytes_on_disk": nbytes}
     del res, got, want
     torch.cuda.empty_cache()
-    if restored_at != stop or losses != tail or differ or not same_prune:
+    if restored_at != stop or losses != tail or differ or not same_prune \
+            or not same_rows or restored_rows != want_rows[0]:
         raise AssertionError(f"resume {name}: {row}")
     return row
 
@@ -2345,8 +2741,10 @@ def main() -> None:
     times = phase_time()
     phase_model()
     launches = {}
-    for path in PATH_ARGS:
-        for k, v in phase_path(path).items():
+    runs = [lambda p=p: phase_path(p) for p in PATH_ARGS] + [
+        phase_train_tokens, phase_serve, phase_service]
+    for run in runs:
+        for k, v in run().items():
             launches[k] = launches.get(k, 0) + v
     phase_legs()
     phase_legs_packed()

@@ -15,6 +15,12 @@ Set-level pruning reads the store on the host once an epoch:
 ``prune_snapshot`` copies the leaves to numpy (the store's only device →
 host transfer, after a device sync) and ``prune_epoch`` runs
 ``core.pruning`` on that snapshot.
+
+``grow(scores, n_new)`` (the online service's admission, reference
+:239-322 and :1131-1182) extends a store by ``n_new`` rows on its device:
+the old rows bitwise, the new ones at the 1/n' prior, never seen. It
+synchronises the device first, as the snapshot does: pipelined ES leaves
+the last store writes on the scoring stream.
 """
 from __future__ import annotations
 
@@ -79,13 +85,24 @@ def update_scores(scores: ESScores, sample_ids: torch.Tensor,
     return scores
 
 
+def _settle(t: torch.Tensor) -> None:
+    """Wait for every stream's pending work on ``t``'s device (a no-op on
+    the CPU)."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def _check_grow(n_new: int) -> None:
+    if n_new <= 0:
+        raise ValueError(f"grow needs n_new > 0, got {n_new}")
+
+
 def _host(*tensors: torch.Tensor) -> list:
     """Numpy copies of ``tensors``. On CUDA the device is synchronised
     first: pipelined ES leaves the store's and the cadence's last writes
     on two streams, and a copy on the default stream alone could read the
     store before the scoring stream's update."""
-    if tensors[0].is_cuda:
-        torch.cuda.synchronize(tensors[0].device)
+    _settle(tensors[0])
     return [t.to("cpu", copy=True).numpy() for t in tensors]
 
 
@@ -145,6 +162,20 @@ class ReplicatedStore(_HostPrune):
         return PruneSnapshot(weights=[w], losses=[s], seen=[seen],
                              offsets=np.asarray([0], np.int64),
                              n=int(scores.s.shape[0]))
+
+    def grow(self, scores: ESScores, n_new: int
+             ) -> Tuple["ReplicatedStore", ESScores]:
+        """-> (store, a new leaf of n + ``n_new`` rows): the old rows
+        bitwise, the new ones at the 1/n' prior with ``seen`` 0."""
+        _check_grow(n_new)
+        _settle(scores.s)
+        n_tot = int(scores.s.shape[0]) + int(n_new)
+        prior = torch.full((n_new,), 1.0 / n_tot, dtype=torch.float32,
+                           device=scores.s.device)
+        return self, ESScores(
+            s=torch.cat([scores.s, prior]), w=torch.cat([scores.w, prior]),
+            seen=torch.cat([scores.seen, torch.zeros(
+                n_new, dtype=torch.int32, device=scores.seen.device)]))
 
     def checkpoint_spec(self) -> dict:
         """The backend's provenance in a checkpoint's manifest."""
@@ -366,6 +397,50 @@ class QuantizedStore(_HostPrune):
             seen=[seen_q.astype(np.int32)],
             offsets=np.asarray(offs, np.int64), n=int(n),
             q_losses=[s_q], q_scales=[s_sc], q_block=blk)
+
+    def grow(self, qs: QuantizedScores, n_new: int
+             ) -> Tuple["QuantizedStore", QuantizedScores]:
+        """Grow codes and per-block scales together (the ring keeps its
+        rows: their global ids do not move). Old blocks keep codes and
+        scales bitwise; new blocks start on the fresh (1/n')/127 grid, and
+        a new row in the old partial tail block takes its nearest code on
+        that block's scale. A block size that would change across the
+        grow (``block`` above the old row count) raises: every old row
+        would re-code."""
+        _check_grow(n_new)
+        _settle(qs.s_q)
+        n_old = int(qs.s_q.shape[0])
+        n_tot = n_old + int(n_new)
+        blk, blk2 = self._block(n_old), self._block(n_tot)
+        if blk2 != blk:
+            raise ValueError(
+                f"quant block changes across grow ({blk} -> {blk2}): "
+                f"construct the store with block <= the pre-grow row "
+                f"count so block boundaries are stable")
+        nb_old, nb_new = -(-n_old // blk), -(-n_tot // blk)
+        dev = qs.s_q.device
+        scale0 = torch.full((nb_new - nb_old,),
+                            float(np.float32((1.0 / n_tot) / _QMAX)),
+                            dtype=torch.float32, device=dev)
+        s_scale = torch.cat([qs.s_scale, scale0])
+        w_scale = torch.cat([qs.w_scale, scale0])
+        # the new rows' codes, with the reference's numpy arithmetic, from
+        # the scales of the blocks they land in (the old tail and new ones)
+        lo = n_old // blk
+        new_blk = np.arange(n_old, n_tot, dtype=np.int64) // blk - lo
+
+        def codes(scales: torch.Tensor) -> torch.Tensor:
+            sc = scales[lo:].cpu().numpy()
+            q = np.clip(np.round((1.0 / n_tot) / sc[new_blk]), -_QMAX,
+                        _QMAX).astype(np.int8)
+            return torch.from_numpy(q).to(dev)
+
+        return self, dataclasses.replace(
+            qs, s_q=torch.cat([qs.s_q, codes(s_scale)]),
+            w_q=torch.cat([qs.w_q, codes(w_scale)]),
+            seen_q=torch.cat([qs.seen_q, torch.zeros(
+                n_new, dtype=torch.int8, device=dev)]),
+            s_scale=s_scale, w_scale=w_scale)
 
     def checkpoint_spec(self) -> dict:
         return {"kind": "quantized", "block": int(self.block),

@@ -1,11 +1,18 @@
-"""The data pipeline: sources, the epoch sampler and background prefetch
-(counterpart of ``repro/data/pipeline``)."""
+"""The data pipeline: sources, the epoch sampler, background prefetch and
+admission batching (counterpart of ``repro/data/pipeline``)."""
 from ..packed import PackedSource
+from .admission import (AdmissionController, AdmissionResult,
+                        es_admission_filter)
 from .pipeline import DataPipeline
 from .prefetch import (CudaPlacer, HostPlacer, Prefetcher, SyncStream,
                        make_placer)
-from .sources import Source, SyntheticSource
+from .sources import (PackedSFTSource, ShardedFileSource, Source,
+                      StreamingSource, SyntheticSource, TokenBinSource,
+                      get_source, write_token_bin)
 
-__all__ = ["PackedSource", "DataPipeline", "CudaPlacer", "HostPlacer",
-           "Prefetcher", "SyncStream", "make_placer", "Source",
-           "SyntheticSource"]
+__all__ = ["PackedSource", "AdmissionController", "AdmissionResult",
+           "es_admission_filter", "DataPipeline", "CudaPlacer", "HostPlacer",
+           "Prefetcher", "SyncStream", "make_placer", "PackedSFTSource",
+           "ShardedFileSource", "Source", "StreamingSource",
+           "SyntheticSource", "TokenBinSource", "get_source",
+           "write_token_bin"]

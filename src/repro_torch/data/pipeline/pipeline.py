@@ -24,7 +24,15 @@ source's fingerprint and the kept-set (the sampler's, or a packed
 source's documents) through the checkpoint (manifest and extras);
 ``load_state`` checks them against this run, and ``epoch(epoch,
 start_step=s)`` then continues mid-epoch with the batch ids and grad
-scales the uninterrupted run would have produced. Not ported yet: growth.
+scales the uninterrupted run would have produced.
+
+Growth (the online service): ``grow(n_new, epoch)`` admits rows that the
+source has already appended; the sampler walks them from the next epoch.
+A ``StreamingSource``'s appended rows ride the checkpoint's extras and
+are re-appended before the cursor's length check on resume.
+
+Hosts: ``host_id``/``num_hosts`` go to the sampler, and each host's
+stream holds its slice of every global meta-batch.
 """
 from __future__ import annotations
 
@@ -39,10 +47,12 @@ from .sources import Source, source_fingerprint
 
 class DataPipeline:
     def __init__(self, source: Source, meta_batch: int, *, seed: int = 0,
+                 host_id: int = 0, num_hosts: int = 1,
                  drop_last: bool = True, prefetch: bool = True,
                  depth: int = 2, place: Optional[Placer] = None):
         self.source = source
         self.sampler = ESSampler(len(source), meta_batch, seed=seed,
+                                 host_id=host_id, num_hosts=num_hosts,
                                  drop_last=drop_last)
         self.prefetch = prefetch
         self.depth = depth
@@ -57,9 +67,10 @@ class DataPipeline:
         return SyncStream(host_iter, place=self.place)
 
     def batch_at(self, epoch: int, step: int) -> Dict[str, np.ndarray]:
-        """Host batch ``step`` of ``epoch``, built on demand with its grad
-        scale (a resumed pipelined session rebuilds its held batch so)."""
-        ids = self.sampler.batch_ids(epoch, step)
+        """This host's batch ``step`` of ``epoch``, built on demand with
+        its grad scale (a resumed pipelined session rebuilds its held batch
+        so)."""
+        ids = self.sampler.host_slice(self.sampler.batch_ids(epoch, step))
         batch = self.source.batch(ids)
         if self.sampler.grad_scale is not None:
             batch["grad_scale"] = self.sampler.grad_scale_for(ids)
@@ -97,6 +108,16 @@ class DataPipeline:
     def steps_per_epoch(self, epoch: int = 0) -> int:
         return self.sampler.steps_per_epoch(epoch)
 
+    def grow(self, n_new: int, epoch: int) -> None:
+        """Admit ``n_new`` rows the source has already appended; the
+        sampler walks them from epoch ``epoch + 1``."""
+        if len(self.source) < self.sampler.n_samples + n_new:
+            raise ValueError(
+                f"pipeline grow: source has {len(self.source)} rows but "
+                f"the sampler would cover {self.sampler.n_samples + n_new}"
+                f"; append to the source first")
+        self.sampler.grow(n_new, epoch)
+
     # ---- resume ----------------------------------------------------------
     def cursor(self, epoch: int, step: int) -> Dict:
         cur = self.sampler.cursor(epoch, step)
@@ -108,10 +129,16 @@ class DataPipeline:
         arrays = self.sampler.state_arrays()
         if self.doc_level:
             arrays.update(self.source.doc_state_arrays())
+        if hasattr(self.source, "stream_state_arrays"):
+            arrays.update(self.source.stream_state_arrays())
         return arrays
 
     def load_state(self, extras: Dict[str, np.ndarray],
                    cursor: Optional[Dict] = None) -> None:
+        # a streaming source re-appends its rows before the length check:
+        # the cursor recorded the grown population
+        if hasattr(self.source, "load_stream_state"):
+            self.source.load_stream_state(extras)
         if cursor is not None and "source" in cursor:
             name, n = source_fingerprint(self.source)
             if cursor["source"]["n"] != n:

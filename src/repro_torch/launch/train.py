@@ -1,7 +1,7 @@
 """The ES trainer and its CLI (counterpart of ``repro/launch/train.py``:
-``Trainer`` :104-265, ``_resume``/``_checkpoint`` :323-395,
-``_prune_for_epoch`` :397-435, ``_record``/``train`` :437-588, ``main``
-:591).
+``Trainer`` :104-265, ``_grow_store``/``grow`` :293-321,
+``_resume``/``_checkpoint`` :323-395, ``_prune_for_epoch`` :397-435,
+``_record``/``train`` :437-588, ``main`` :591).
 
     python -m repro_torch.launch.train --arch qwen1.5-0.5b --full --method es \\
         --meta-batch 32 --minibatch 8 --seq-len 512 --n-samples 1024 \\
@@ -21,6 +21,11 @@
     ... --method infobatch
     # checkpoints every 50 steps and at the end; run again to resume
     ... --ckpt-dir /path/to/ckpts
+    # a token file (uint16 windows of --seq-len + 1), a glob of them, or
+    # prompt/response JSONL; one host's slice of each global meta-batch
+    ... --source tokens --data-path corpus.bin --num-hosts 2 --host-id 1
+    ... --source sharded --data-path 'shards/*.bin'
+    ... --source sft --data-path pairs.jsonl
 
 The flags are the JAX CLI's. What the port runs: the batch-level methods
 ``es``, ``loss``, ``order`` and ``baseline``, and the set-level ones
@@ -30,8 +35,10 @@ or on the drift cadence (``--prune-cadence epoch|drift``); serial or
 pipelined ES (``--pipelined``); the
 four scoring cadences (``--freq-schedule fixed|warmup|adaptive|drift``
 with ``--score-every``, ``--gain-floor``, ``--drift-target``); the
-synthetic source or the packed synthetic documents (``--pack``,
-``--source packed``), through the prefetching data pipeline (on by
+synthetic source, the packed synthetic documents (``--pack``,
+``--source packed``), token files (``--source tokens|sharded`` with
+``--data-path``) or SFT pairs (``--source sft``, JSONL at ``--data-path``
+or the synthetic set), through the prefetching data pipeline (on by
 default; ``--no-prefetch``, ``--prefetch-depth``); the f32 or the
 replicated int8 score store (``--quant-scores``), each with its fused
 kernel or its scatter form; checkpoints and a bit-exact resume, mid-epoch
@@ -39,6 +46,19 @@ and with a pipelined held batch included (``--ckpt-dir``). Every other
 flag raises "not ported yet" when it asks for anything but its default.
 ``--device`` (default ``cuda``) and ``--seed`` are the port's own: without
 a GPU the default device raises, and the CPU runs only when asked for.
+
+Hosts: ``--num-hosts``/``--host-id`` give this process's slice of every
+global meta-batch. Left unset they come from ``torch.distributed`` when a
+process group is initialised, else one host (the reference reads
+``jax.process_count()``/``process_index()``).
+
+Growth (the online service, ``launch/service.py``): ``grow(n_new,
+epoch)`` admits rows the source (a ``StreamingSource``) has appended: the
+store grows now, the sampler walks them from the next epoch. Hooks in
+``step_hooks`` run as ``hook(trainer, epoch)`` after each trained step,
+after its loss was read (a device sync), and before the next batch is
+taken. A checkpoint of a grown run resumes: the store is grown to the
+manifest's last population before the state is read.
 
 The training path's memory knobs: the model config's ``remat_policy`` and
 ``attn_chunk_q``, and ``ESConfig.seq_chunk`` at its default of 1,024 (the
@@ -79,7 +99,7 @@ import dataclasses
 import json
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -92,9 +112,9 @@ from ..core.engine import (CadenceConfig, ESConfig, ESEngine,
                            init_train_state)
 from ..core.frequency import make_schedule
 from ..core.scores import make_store
-from ..data.pipeline import (DataPipeline, PackedSource, Prefetcher,
-                             SyncStream, SyntheticSource, make_placer)
-from ..data.synthetic import SyntheticConfig, SyntheticLM
+from ..data.pipeline import (DataPipeline, Prefetcher, SyncStream,
+                             get_source, make_placer)
+from ..data.pipeline.sources import SOURCES
 from ..models.transformer import lm_per_sample_loss
 from ..optim.adamw import OptConfig
 from ..optim.schedule import get_schedule
@@ -133,7 +153,11 @@ class TrainerConfig:
     device: str = "cuda"
     quant_scores: bool = False    # int8 score store
     quant_block: int = 1024       # rows per int8 scale
-    source: str = "synthetic"     # synthetic | packed
+    source: str = "synthetic"     # synthetic | tokens | sharded | sft |
+    #                               packed
+    data_path: Optional[str] = None  # bin / glob / jsonl of a file source
+    host_id: Optional[int] = None    # default: the process group's rank
+    num_hosts: Optional[int] = None  # default: its world size, else 1
     pack: bool = False            # packed documents (source "packed")
     max_segments: int = 4         # documents per packed row
     prefetch: bool = True         # build + copy batch t+1 during step t
@@ -143,10 +167,7 @@ class TrainerConfig:
     # not ported yet: each must keep its default (see _check_supported)
     shard_scores: bool = False
     quant_wire: bool = False
-    host_id: Optional[int] = None
-    num_hosts: Optional[int] = None
     grad_compression: bool = False
-    data_path: Optional[str] = None
 
 
 SET_LEVEL = {"eswp", "infobatch", "ucb", "ka", "random"}
@@ -157,14 +178,8 @@ METHODS = ("es", "eswp", "loss", "order", "baseline", "infobatch", "ucb",
 _NOT_PORTED = {
     "shard_scores": "--shard-scores (sharded score store)",
     "quant_wire": "--quant-wire (int8 wire of the sharded store)",
-    "host_id": "--host-id (multi-host data slicing)",
-    "num_hosts": "--num-hosts (multi-host data slicing)",
     "grad_compression": "--grad-compression (int8 gradient wire)",
-    "data_path": "--data-path (file sources)",
 }
-
-
-SOURCES = ("synthetic", "packed")
 
 
 def _check_supported(tc: TrainerConfig) -> None:
@@ -173,13 +188,24 @@ def _check_supported(tc: TrainerConfig) -> None:
         if getattr(tc, field) != getattr(defaults, field):
             raise NotImplementedError(f"{what} is not ported yet")
     if tc.source not in SOURCES:
-        raise NotImplementedError(
-            f"--source {tc.source} is not ported yet; the PyTorch port runs "
-            f"{SOURCES}")
+        raise ValueError(f"unknown --source {tc.source!r}; one of "
+                         f"{SOURCES}")
     if tc.method not in METHODS:
         raise NotImplementedError(
             f"method {tc.method!r} is not ported yet; the PyTorch port runs "
             f"{METHODS}")
+
+
+def _hosts(tc: TrainerConfig) -> Tuple[int, int]:
+    """(host_id, num_hosts): the config's, else the process group's rank
+    and world size, else one host."""
+    dist = torch.distributed
+    live = dist.is_available() and dist.is_initialized()
+    host_id = tc.host_id if tc.host_id is not None \
+        else (dist.get_rank() if live else 0)
+    num_hosts = tc.num_hosts if tc.num_hosts is not None \
+        else (dist.get_world_size() if live else 1)
+    return host_id, num_hosts
 
 
 class Trainer:
@@ -187,14 +213,15 @@ class Trainer:
 
     ``model_cfg`` overrides the ``--arch`` config; ``init_params`` (the
     port's parameter dict, e.g. from ``bridge.params_from_jax``) replaces
-    the random init. With a packed source the ES identity (score rows,
-    selection) is the DOCUMENT: the store holds ``n_docs`` rows while the
-    sampler walks packed rows.
+    the random init; ``source`` replaces the one ``tc.source`` names (the
+    service passes a ``StreamingSource``). With a packed source the ES
+    identity (score rows, selection) is the DOCUMENT: the store holds
+    ``n_docs`` rows while the sampler walks packed rows.
     """
 
     def __init__(self, tc: TrainerConfig,
                  model_cfg: Optional[ModelConfig] = None,
-                 init_params: Optional[Dict] = None):
+                 init_params: Optional[Dict] = None, source=None):
         _check_supported(tc)
         if tc.pack and tc.source != "packed":
             tc = dataclasses.replace(tc, source="packed")
@@ -209,18 +236,19 @@ class Trainer:
         self.model_cfg = model_cfg or (
             get_smoke_config(tc.arch) if tc.smoke else get_config(tc.arch))
         require_dense(self.model_cfg)
-        vocab = min(self.model_cfg.vocab_size, 64)
-        if tc.source == "packed":
-            self.source = PackedSource.synthetic(
-                tc.n_samples, tc.seq_len, max_segments=tc.max_segments,
-                vocab=vocab, seed=tc.seed)
-        else:
-            self.source = SyntheticSource(SyntheticLM(SyntheticConfig(
-                n_samples=tc.n_samples, seq_len=tc.seq_len,
-                vocab_size=vocab, seed=tc.seed)))
+        if source is None:
+            source = get_source(tc.source, path=tc.data_path,
+                                n_samples=tc.n_samples, seq_len=tc.seq_len,
+                                vocab_size=min(self.model_cfg.vocab_size,
+                                               64),
+                                seed=tc.seed, max_segments=tc.max_segments)
+        self.source = source
+        self.host_id, self.num_hosts = _hosts(tc)
         self._placer = make_placer(self.device)
         self.pipeline = DataPipeline(self.source, tc.meta_batch,
-                                     seed=tc.seed, drop_last=tc.drop_last,
+                                     seed=tc.seed, host_id=self.host_id,
+                                     num_hosts=self.num_hosts,
+                                     drop_last=tc.drop_last,
                                      prefetch=tc.prefetch,
                                      depth=tc.prefetch_depth,
                                      place=self._placer)
@@ -275,6 +303,9 @@ class Trainer:
                                       params=init_params, store=self.store,
                                       meta_batch=tc.meta_batch)
         self.ckpt = Checkpointer(tc.ckpt_dir) if tc.ckpt_dir else None
+        # hook(trainer, epoch) after every trained step (the service polls
+        # admission here)
+        self.step_hooks: list = []
         self.metrics_log: list = []
         self.prune_events: list = []
         self.epoch_log: list = []
@@ -326,15 +357,44 @@ class Trainer:
         """One host batch on the trainer's device, ready to read."""
         return self._placer.ready(self._placer(host))
 
+    def _grow_store(self, n_new: int) -> None:
+        """Grow the store, the engine's config and the state by ``n_new``
+        rows (old rows bitwise, new ones at the 1/n' prior)."""
+        self.store, self.state.scores = self.store.grow(self.state.scores,
+                                                        n_new)
+        self.engine.store = self.store
+        self.n_train += n_new
+        self.es_cfg = dataclasses.replace(self.es_cfg, n_train=self.n_train)
+        self.engine.es_cfg = self.es_cfg
+        if self.prev_epoch_losses is not None:
+            # 0.0: KA's move-back rule re-admits rows without a previous
+            # epoch's loss
+            self.prev_epoch_losses = np.concatenate(
+                [self.prev_epoch_losses, np.zeros(n_new, np.float32)])
+
+    def grow(self, n_new: int, epoch: int) -> None:
+        """Admit ``n_new`` rows the source has already appended: the store
+        grows now, the sampler walks them from epoch ``epoch + 1`` (the
+        current epoch's permutation stays). The pipeline grows first: it
+        checks that the source holds the rows, so a missing ``append``
+        leaves the run untouched."""
+        self.pipeline.grow(n_new, epoch)
+        self._grow_store(n_new)
+
     def _resume(self) -> None:
         """Restore the latest checkpoint: the state, the counters and the
-        data cursor (mid-epoch position and pipelined carry)."""
+        data cursor (mid-epoch position, pipelined carry, growth)."""
         step = self.ckpt.latest_step()
         md = self.ckpt.manifest(step)["metadata"]
         cur = md.get("data")
         if cur is not None:     # checked before the state is read
             extras = self.ckpt.extras(step)
             self.pipeline.load_state(extras, cur)
+            # a grown run: extend the template store to the checkpoint's
+            # population before the state is read into it
+            growth = cur.get("growth") or []
+            if growth and int(growth[-1][1]) > self.n_train:
+                self._grow_store(int(growth[-1][1]) - self.n_train)
         self.state = self.engine.load_state_dict(
             self.state, self.ckpt.restore(
                 self.engine.state_dict(self.state), step))
@@ -494,6 +554,8 @@ class Trainer:
                     float(m["loss"])            # waits for the device
                     stop = self._record(epoch, m, time.perf_counter() - t0,
                                         waited)
+                    for hook in self.step_hooks:
+                        hook(self, epoch)
                     waited = 0.0
                     t0 = time.perf_counter()
                     if stop:
@@ -610,8 +672,19 @@ def build_parser() -> argparse.ArgumentParser:
                     "ring)")
     ap.add_argument("--quant-block", type=int, default=1024,
                     help="rows per int8 scale")
-    ap.add_argument("--source", default="synthetic",
-                    help="synthetic or packed (the port's two sources)")
+    ap.add_argument("--source", default="synthetic", choices=SOURCES,
+                    help="in-memory synthetic LM, a memory-mapped token "
+                    "file, token files (glob), prompt/response pairs with "
+                    "response-only labels, or packed synthetic documents")
+    ap.add_argument("--data-path", default=None,
+                    help="tokens: .bin path; sharded: glob pattern; sft: "
+                    "JSONL path (omit for the synthetic SFT set)")
+    ap.add_argument("--host-id", type=int, default=None,
+                    help="this host's slice of each global meta-batch "
+                    "(default: the process group's rank, else 0)")
+    ap.add_argument("--num-hosts", type=int, default=None,
+                    help="hosts sharing each global meta-batch (default: "
+                    "the process group's world size, else 1)")
     ap.add_argument("--pack", action="store_true",
                     help="packed documents, token-level ES (--n-samples "
                     "counts documents)")
@@ -627,9 +700,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shard-scores", action="store_true")
     ap.add_argument("--quant-wire", action="store_true")
     ap.add_argument("--grad-compression", action="store_true")
-    ap.add_argument("--host-id", type=int, default=None)
-    ap.add_argument("--num-hosts", type=int, default=None)
-    ap.add_argument("--data-path", default=None)
     return ap
 
 

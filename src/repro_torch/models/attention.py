@@ -1,5 +1,6 @@
 """Self-attention of the dense decoder (counterpart of
-``repro/models/attention.py:51-181``, ``mha`` and ``segment_causal_mask``).
+``repro/models/attention.py:51-181``, ``mha`` and ``segment_causal_mask``,
+and :195-267, the KV-cache paths of serving).
 
 Two paths compute the same function:
 
@@ -19,13 +20,22 @@ Packed rows (``segment_ids`` with per-row (B, S) ``positions``) take the
 training path with a segment-isolated causal mask; the flash kernel has
 no segment support, as the reference kernel has none.
 
+Serving: ``prefill_attn`` writes the prompt's K/V (after RoPE) to the
+cache and attends causally over the prompt. On a CUDA tensor it takes the
+flash-attention kernel (causal, no segments; bf16 only, as the scoring
+forward), where the reference runs XLA's query-chunked attention: the
+same function, so ``chunk_q`` is ignored there; on a CPU tensor the plain
+chunked path. ``decode_attn`` attends one query against the cache, every
+position above ``pos`` masked, in plain PyTorch as the reference's XLA.
+The cache is updated in place.
+
 Layouts: q (B, S, H, hd) grouped as (B, S, K, G, hd) with G = H / K;
 k, v (B, S, K, hd). Weights are (d_in, d_out).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -152,3 +162,73 @@ def mha(params: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
                                                 causal, slice(None)))
     out = out.reshape(B, S, n_heads * head_dim)
     return out @ params["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV-cache paths (prefill / decode)
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
+                  dtype=torch.bfloat16, stacked: Tuple[int, ...] = (),
+                  device="cuda") -> Dict[str, torch.Tensor]:
+    shape = tuple(stacked) + (batch, max_len, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _chunked_causal(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    positions: torch.Tensor, chunk_q: int) -> torch.Tensor:
+    """Plain causal attention over query chunks of ``chunk_q`` (all at
+    once when it does not divide S)."""
+    S = qg.shape[1]
+    if chunk_q and S > chunk_q and S % chunk_q == 0:
+        return torch.cat([
+            _grouped_attn(qg[:, lo:lo + chunk_q], k, v,
+                          causal_mask(positions[lo:lo + chunk_q], positions))
+            for lo in range(0, S, chunk_q)], dim=1)
+    return _grouped_attn(qg, k, v, causal_mask(positions, positions))
+
+
+def prefill_attn(params: Params, x: torch.Tensor,
+                 cache: Dict[str, torch.Tensor], *, n_heads: int, n_kv: int,
+                 head_dim: int, rope_theta: float, chunk_q: int = 0
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Causal self-attention over the prompt x (B, S, d); K/V after RoPE
+    are written to ``cache[:, :S]``. -> (y (B, S, d), cache)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim)
+    cos, sin = rope_angles(positions, head_dim, rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    cache["k"][:, :S] = k.to(cache["k"].dtype)
+    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    if x.is_cuda:
+        out = gqa_flash_attention(q, k, v, causal=True)
+    else:
+        out = _chunked_causal(q.reshape(B, S, n_kv, n_heads // n_kv,
+                                        head_dim), k, v, positions, chunk_q)
+    out = out.reshape(B, S, n_heads * head_dim)
+    return out @ params["wo"].to(x.dtype), cache
+
+
+def decode_attn(params: Params, x: torch.Tensor,
+                cache: Dict[str, torch.Tensor], pos: torch.Tensor, *,
+                n_heads: int, n_kv: int, head_dim: int, rope_theta: float
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token: x (B, 1, d) at position ``pos`` (a 1-element int
+    tensor on x's device). -> (y (B, 1, d), cache)."""
+    B = x.shape[0]
+    S_max = cache["k"].shape[1]
+    q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim)
+    cos, sin = rope_angles(pos, head_dim, rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    # index_copy_ at a device position: no host read of pos
+    cache["k"].index_copy_(1, pos, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, pos, v.to(cache["v"].dtype))
+    kc, vc = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+    qg = q.reshape(B, 1, n_kv, n_heads // n_kv, head_dim)
+    mask = causal_mask(pos, torch.arange(S_max, device=x.device))
+    out = _grouped_attn(qg, kc, vc, mask).reshape(B, 1, n_heads * head_dim)
+    return out @ params["wo"].to(x.dtype), cache

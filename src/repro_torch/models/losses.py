@@ -1,6 +1,6 @@
-"""Per-sample and per-segment token cross-entropy (counterpart of
-``repro/models/losses.py:22-111``, ``per_sample_xent`` and
-``per_segment_xent``).
+"""Per-sample and per-segment token cross-entropy, and the serving path's
+last-token logits (counterpart of ``repro/models/losses.py:22-119``,
+``per_sample_xent``, ``per_segment_xent`` and ``last_token_logits``).
 
 The training path in plain autograd: logits formed in the compute dtype,
 cast to float32, logsumexp minus the correct-class logit. The correct-class
@@ -109,3 +109,10 @@ def per_segment_xent(h: torch.Tensor, w_out: torch.Tensor,
         nll.contiguous(), segment_ids.to(torch.int32).contiguous(),
         mask.contiguous(), max_segments=max_segments)
     return sums / torch.clamp(counts, min=1.0), counts
+
+
+def last_token_logits(h_last: torch.Tensor,
+                      w_out: torch.Tensor) -> torch.Tensor:
+    """h_last (B, 1, d), w_out (d, V) -> (B, V) float32 logits for
+    sampling: the product in h's dtype, then cast."""
+    return (h_last[:, 0] @ w_out.to(h_last.dtype)).float()

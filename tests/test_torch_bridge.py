@@ -87,9 +87,12 @@ def test_port_imports_neither_jax_nor_repro():
         "       'repro_torch.data.pipeline.pipeline',\n"
         "       'repro_torch.data.pipeline.sources',\n"
         "       'repro_torch.checkpoint',\n"
-        "       'repro_torch.checkpoint.checkpointer'}\n"
+        "       'repro_torch.checkpoint.checkpointer',\n"
+        "       'repro_torch.data.pipeline.admission',\n"
+        "       'repro_torch.models.model', 'repro_torch.launch.serve',\n"
+        "       'repro_torch.launch.service'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
-        "assert len(names) >= 49, names\n"
+        "assert len(names) >= 53, names\n"
         "print('OK', len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

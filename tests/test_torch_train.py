@@ -124,12 +124,14 @@ def test_default_device_raises_without_gpu():
         ttrain.Trainer(ttrain.TrainerConfig(**COMMON))
 
 
+# the file sources and host slicing are ported (tests/test_torch_sources.py)
 @pytest.mark.parametrize("flags", [["--grad-compression"],
                                    ["--shard-scores"],
                                    ["--quant-scores", "--quant-wire"],
-                                   ["--source", "tokens"],
-                                   ["--data-path", "x"], ["--host-id", "1"],
-                                   ["--num-hosts", "2"]])
+                                   ["--shard-scores", "--quant-scores"],
+                                   ["--grad-compression", "--pipelined"],
+                                   ["--arch", "mamba2-780m"],
+                                   ["--method", "grad-norm"]])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="not ported"):
         ttrain.main(["--device", "cpu", *flags])
