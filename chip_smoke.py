@@ -13,7 +13,8 @@ Phases, run in order, each of which raises on failure (nothing is caught):
 3. ``check`` each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at ragged shapes (the edges of the flash
    kernel's 128-query tiles and the xent kernels' 128 x 256 tiles and
-   64-deep k slices; the two xent kernels also one by one); the f32 score
+   64-deep k slices; the two xent kernels also one by one; the other
+   families' (M, V, d) and flash shapes, head dim 80 included); the f32 score
    update with duplicate, -1 and out-of-range ids, one id, 512 ids over
    64 rows and a batch above its 4,096-id chunk, plus the duplicate-id
    pin; the three int8 store kernels (grow/re-code, ring slots, apply)
@@ -77,7 +78,23 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    8: each drain's launches (24 flash, one xent call, one score update
    when it admits), the grown store, sampler and source, epoch 1's steps
    over the admitted rows, a decode from the live weights; the admission
-   latency);
+   latency); then the other families and ``--grad-compression`` (phase
+   6c), each through the same entry points: ``train_mamba2``
+   (mamba2-780m at its published widths and depth, S1's traffic: one xent
+   call and one store update a step, no flash), ``train_zamba2``
+   (zamba2-2.7b at its published widths and depth, meta-batch 16,
+   minibatch 4: nine flash launches at head dim 80 a scoring leg),
+   ``train_moe`` (arctic's smoke config: 8 experts top-2 and a dense
+   residual) and ``train_gc`` (S1 with ``--grad-compression``), 4 steps
+   each; each family path holds its first scoring leg's per-sample losses
+   to the plain forward (``scoring=False``, no grad) on the same batch
+   and weights within 5e-2 and reports its scoring and training legs
+   (host clock and device time); ``train_gc`` reports the compression
+   leg and the residuals' bytes and holds ``compress_decompress`` on the
+   card to a CPU copy bitwise; ``serve_mamba2`` (full-width mamba2, no
+   kernel launch at all) and ``serve_moe`` (grok-1 at its published
+   widths cut to 2 layers, 16 tokens; the checks at a dropless capacity)
+   as ``serve``;
 7. ``legs``: where a step's time goes (serial-ES legs and a profiled step;
    the packed step's legs and the segment-sum kernels' launches and device
    time inside its forward + backward; the int8 store update against the
@@ -101,8 +118,9 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    and copy to the host) held bitwise against the store's tensors copied
    plainly, and each set-level method's decision time on it, its kept-set
    held against ``prune_epoch`` on those arrays;
-12. ``resume``: ``train``, ``train_pipelined`` (a held batch) and
-   ``train_quant`` (the int8 ring) killed after 2 steps with
+12. ``resume``: ``train``, ``train_pipelined`` (a held batch),
+   ``train_quant`` (the int8 ring) and ``train_gc`` (the gradients'
+   residuals) killed after 2 steps with
    ``--ckpt-dir`` and resumed to 4, against 4 steps straight, and
    ``train_eswp`` killed at step 8 (mid-epoch 1, after a prune) and
    resumed to 12: the tail's losses, every leaf of the final state, the
@@ -139,6 +157,7 @@ import subprocess
 import sys
 import time
 import types
+from functools import partial
 from pathlib import Path
 
 import torch
@@ -222,6 +241,16 @@ PER_UNIT = {
     "train_packed_eswp": {"segment_sum": 1, "segment_sum_grad": 1,
                           "fused_score_update": 1},
     "train_tokens": SCORING_LEG,
+    # the other families (phase 6c): a scoring leg is one xent call, one
+    # flash launch per attention layer (mamba2: none; zamba2: the shared
+    # block at each of its 9 sites; arctic smoke: 2 layers) and one store
+    # update; --grad-compression launches nothing of its own
+    "train_mamba2": {"fused_xent": 1, "fused_score_update": 1},
+    "train_zamba2": {"fused_xent": 1, "gqa_flash_attention": 9,
+                     "fused_score_update": 1},
+    "train_moe": {"fused_xent": 1, "gqa_flash_attention": 2,
+                  "fused_score_update": 1},
+    "train_gc": SCORING_LEG,
 }
 
 
@@ -338,8 +367,8 @@ def kernel_device_ms(fn, *kernels: str, reps: int = 20) -> float:
     ``time_ms`` read the wrapper's host path (checks, allocation, the
     ctypes call) while the device idles; this reads the kernels alone.
     A trace that misses launches (the profiler has dropped some) is taken
-    again, at most twice more."""
-    for _ in range(3):
+    again, at most four more times."""
+    for _ in range(5):
         all_rows = _device_rows(fn, reps)
         counts, total = [], 0.0
         for kernel in kernels:
@@ -859,7 +888,14 @@ def phase_check() -> dict:
                           check_xent(200, 1000, 1000),
                           check_xent(300, 257, 128),
                           check_xent_parts(1024, 151936, 1024),
-                          check_xent_parts(100, 257, 1000)),
+                          check_xent_parts(100, 257, 1000),
+                          # the other families' scoring forwards (mamba2,
+                          # zamba2, the arctic smoke path) and grok-1's
+                          # (d, V), which no training path reaches
+                          check_xent(16384, 50304, 1536),
+                          check_xent(8192, 32000, 2560),
+                          check_xent(16384, 128, 64),
+                          check_xent(2048, 131072, 6144)),
         # 128-query tiles: S = 1000 causal GQA, one kv tile, one query;
         # every head dim
         "gqa_flash_attention": max(
@@ -873,7 +909,15 @@ def phase_check() -> dict:
             check_flash(3, 1, 4, 2, 64, True),
             check_flash(3, 1, 4, 2, 64, False),
             check_flash(2, 512, 8, 8, 128, True),
-            check_flash(2, 300, 8, 4, 32, False)),
+            check_flash(2, 300, 8, 4, 32, False),
+            # head dim 80 (zamba2's shared block: five 16-wide panels) at
+            # the path's shape and at ragged tiles; the MoE configs' GQA
+            # 48:8 (grok-1) and 56:8 (arctic) at head dim 128
+            check_flash(16, 512, 32, 32, 80, True),
+            check_flash(2, 300, 4, 4, 80, False),
+            check_flash(2, 1000, 8, 2, 80, True),
+            check_flash(2, 512, 48, 8, 128, True),
+            check_flash(2, 512, 56, 8, 128, True)),
         # the path's shape, duplicates with -1 and out-of-range ids, one
         # id, 512 ids over 64 rows, and a batch above the 4,096-id chunk
         # with duplicates across the boundary
@@ -946,9 +990,6 @@ def phase_check() -> dict:
 # ---------------------------------------------------------------------------
 
 def phase_time() -> dict:
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attn.ops import gqa_flash_attention
-    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
     from repro_torch.kernels.xent.ops import fused_xent
     from repro_torch.kernels.xent.ref import xent_ref
     out = {}
@@ -977,27 +1018,12 @@ def phase_time() -> dict:
     del h, w, labels
     torch.cuda.empty_cache()
 
-    B, S, H, K, hd = 32, 512, 16, 16, 64
-    q, k, v = flash_inputs(B, S, H, K, hd)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    pairs = B * H * S * (S + 1) / 2          # causal (query, key) pairs
-    flops = 4.0 * hd * pairs
-    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * K * hd)
-    bms, by = bound(flops, nbytes)
-    out["gqa_flash_attention"] = {
-        "ms": time_ms(lambda: gqa_flash_attention(q, k, v), 20),
-        "device_ms": kernel_device_ms(lambda: gqa_flash_attention(q, k, v),
-                                      "flash_fwd_kernel"),
-        "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v), 5),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 20),
-        "library_device_ms": device_trace(
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True))["device_ms"],
-        "bound_ms": bms, "bound_by": by,
-        "shape": {"B": B, "S": S, "H": H, "K": K, "hd": hd}}
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
+    out["gqa_flash_attention"] = time_flash(32, 512, 16, 16, 64)
+    # zamba2-2.7b's shared block (head dim 80) at train_zamba2's scoring
+    # shape, and grok-1's prefill (GQA 48:8, head dim 128) at serve_moe's
+    out["gqa_flash_attention"]["at"] = {
+        "zamba2_hd80": time_flash(16, 512, 32, 32, 80),
+        "grok1_prefill_hd128": time_flash(8, 512, 48, 8, 128)}
 
     n, Bs = 1024, 32
     ids = _perm(n, Bs)
@@ -1035,6 +1061,38 @@ def phase_time() -> dict:
           "store_update": store_timings(),
           "card": smi_line()})
     return out
+
+
+def time_flash(B: int, S: int, H: int, K: int, hd: int) -> dict:
+    """The flash kernel at one causal shape: events and device ms, its
+    plain version, SDPA (events and device), and the bound of the shape
+    (q, k, v read and o written once; 4 hd flops a causal pair)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn.ops import gqa_flash_attention
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    q, k, v = flash_inputs(B, S, H, K, hd)
+    # SDPA takes (B, heads, S, hd) and repeats the kv heads itself
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    gqa = {"enable_gqa": True} if H != K else {}
+    pairs = B * H * S * (S + 1) / 2          # causal (query, key) pairs
+    flops = 4.0 * hd * pairs
+    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * K * hd)
+    bms, by = bound(flops, nbytes)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              **gqa)
+    row = {"ms": time_ms(lambda: gqa_flash_attention(q, k, v), 20),
+           "device_ms": kernel_device_ms(lambda: gqa_flash_attention(q, k, v),
+                                         "flash_fwd_kernel"),
+           "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v), 5),
+           "library_ms": time_ms(library, 20),
+           "library_device_ms": device_trace(library)["device_ms"],
+           "bound_ms": bms, "bound_by": by,
+           "shape": {"B": B, "S": S, "H": H, "K": K, "hd": hd}}
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
 
 
 def empty_launch_device_ms() -> float:
@@ -1650,6 +1708,48 @@ def plain_attention():
         attention.gqa_flash_attention = kernel
 
 
+@contextlib.contextmanager
+def flash_inputs_of(record: list):
+    """Keep the (q, k, v) of every flash-kernel call made inside."""
+    from repro_torch.models import attention
+    kernel = attention.gqa_flash_attention
+
+    def spy(q, k, v, **kw):
+        record.append((q, k, v))
+        return kernel(q, k, v, **kw)
+    attention.gqa_flash_attention = spy
+    try:
+        yield
+    finally:
+        attention.gqa_flash_attention = kernel
+
+
+@contextlib.contextmanager
+def moe_routes(record: list, replay: bool = False):
+    """Record each MoE call's expert choices in call order (``replay``:
+    hand them back, in the same order, to a second run of the same
+    forward). A bf16 near-tie of two router logits is a discontinuity of
+    the model: a last-ulp difference of attention upstream swaps an
+    expert, and the token's output with it. Replaying the first run's
+    choices holds two forwards to each other where they route alike."""
+    from repro_torch.models import moe
+    inner = moe._top_k
+    pending = iter(list(record)) if replay else None
+
+    def spy(logits, k):
+        if replay:
+            idx = next(pending)
+            return logits.gather(-1, idx), idx
+        vals, idx = inner(logits, k)
+        record.append(idx)
+        return vals, idx
+    moe._top_k = spy
+    try:
+        yield
+    finally:
+        moe._top_k = inner
+
+
 def _expect(what: str, got: dict, want: dict) -> None:
     """Every wrapper's launches in ``got`` as ``want`` says (absent: 0)."""
     bad = {k: v for k, v in got.items() if v != want.get(k, 0)}
@@ -1657,24 +1757,43 @@ def _expect(what: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{what}: launches {bad}, expected {want}")
 
 
-def phase_serve() -> dict:
-    """``Server.generate`` on full-width qwen1.5-0.5b: batch 8, prompts of
-    512 tokens, 64 greedy tokens. The prefill launches the flash kernel
-    once a layer and nothing else; its logits are held to the plain
-    prefill's on the card, and a few teacher-forced decode steps to the
-    full (training-path) forward over the same prefix. Times: the prefill
-    alone, the whole ``generate`` (host clock to a device sync), the
-    decode's ms a token from the two, tokens/s, peak memory, and the
-    device time and launches of one prefill and of one decode step
-    (torch.profiler)."""
+def phase_serve(name: str = "serve", cfg=None, gen: int = SERVE_GEN,
+                expect=None, check_cfg=None, exact: bool = False,
+                hold_logits: bool = True) -> dict:
+    """``Server.generate`` on ``cfg`` (full-width qwen1.5-0.5b by default):
+    batch 8, prompts of 512 tokens, ``gen`` greedy tokens. The whole
+    ``generate`` launches ``expect`` (by default the flash kernel once a
+    layer, in the prefill) and nothing else. Its prefill's logits are held
+    to the plain prefill's on the card, and a few teacher-forced decode
+    steps to the full (training-path) forward over the same prefix, both
+    on ``check_cfg`` (``cfg`` by default; a MoE is held with a dropless
+    capacity, where one-token decode routes as the full forward does;
+    the plain prefill takes the kernel's routes, ``moe_routes``). With
+    ``exact`` the teacher-forced steps are held in float32 compute, over
+    a float32 cache that the plain prefill fills (the flash kernel takes
+    bf16 only), as ``tests/test_decode.py`` holds the reference: in bf16
+    an SSM's forward and decode round at other places (bf16 conv weights
+    and activations against float32 ones) and a MoE's routing flips at
+    near-ties, so their bf16 gaps are reported, not held. The flash
+    kernel is also held to its plain version on the very (q, k, v) of
+    each of the prefill's layers. ``hold_logits`` False (a MoE at
+    published widths: the experts' gain at random init amplifies the two
+    attentions' last-ulp differences past the bound, routes pinned or
+    not) reports the prefill's logit gap instead of holding it. Times: the prefill alone, the whole ``generate`` (host clock to a
+    device sync), the decode's ms a token from the two, tokens/s, peak
+    memory, and the device time and launches of one prefill and of one
+    decode step (torch.profiler)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import Server
     from repro_torch.models.layers import unembed_matrix
     from repro_torch.models.losses import last_token_logits
     from repro_torch.models.model import decode_step, init_cache, prefill
     from repro_torch.models.transformer import lm_hidden, tree_leaves
-    cfg = get_config("qwen1.5-0.5b")
-    B, P, G = SERVE_B, SERVE_P, SERVE_GEN
+    cfg = cfg or get_config("qwen1.5-0.5b")
+    ccfg = check_cfg or cfg
+    expect = {"gqa_flash_attention": cfg.num_layers} if expect is None \
+        else expect
+    B, P, G = SERVE_B, SERVE_P, gen
     wrappers = _wrappers()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1688,64 +1807,118 @@ def phase_serve() -> dict:
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
-    _expect("serve", launches, {"gqa_flash_attention": cfg.num_layers})
+    _expect(name, launches, expect)
     if out.shape != (B, P + G) or not ((out >= 0)
                                        & (out < cfg.vocab_size)).all():
-        raise AssertionError(f"serve: tokens of shape {out.shape}")
+        raise AssertionError(f"{name}: tokens of shape {out.shape}")
     tokens = torch.as_tensor(prompts, device="cuda")
 
-    def run_prefill():
+    def run_prefill(c=cfg):
         with torch.no_grad():
-            return prefill(cfg, params, {"tokens": tokens},
-                           init_cache(cfg, B, P + G, device="cuda"))
+            return prefill(c, params, {"tokens": tokens},
+                           init_cache(c, B, P + G, device="cuda"))
 
     prefill_ms = wall_ms(run_prefill, 5)
     gen_ms = wall_ms(lambda: server.generate(prompts, G), 3)
-    with torch.no_grad():
-        fast, cache = run_prefill()
-        with plain_attention():
-            plain, _ = run_prefill()
-        prefill_err = logit_errs(fast, plain)
-        seq = torch.as_tensor(out, device="cuda")
-        decode_errs = []
+    prefill_trace = device_trace(run_prefill, 5)
+    seq = torch.as_tensor(out, device="cuda")
+
+    def teacher_forced(c, cache):
+        """TEACHER_STEPS decode steps of ``c`` over ``cache`` against the
+        full forward over the same prefix."""
+        errs = []
         for t in range(TEACHER_STEPS):
-            logits, cache = decode_step(cfg, params,
-                                        seq[:, P + t:P + t + 1], cache,
-                                        P + t)
-            h = lm_hidden(cfg, params, seq[:, :P + t + 1])
+            logits, cache = decode_step(c, params, seq[:, P + t:P + t + 1],
+                                        cache, P + t)
+            h = lm_hidden(c, params, seq[:, :P + t + 1])
             full = last_token_logits(h[:, -1:],
                                      unembed_matrix(params["embed"]))
-            decode_errs.append(logit_errs(logits, full))
+            errs.append(logit_errs(logits, full))
+            del h, full
+        return errs
+
+    with torch.no_grad():
+        fast_routes, free_routes, qkv = [], [], []
+        with moe_routes(fast_routes), flash_inputs_of(qkv):
+            fast, cache = run_prefill(ccfg)
+        from repro_torch.kernels.flash_attn.ops import gqa_flash_attention
+        from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+        layer_errs = []
+        for q, k, v in qkv:
+            want = flash_attention_ref(q, k, v).float()
+            diff = (gqa_flash_attention(q, k, v).float() - want).abs()
+            layer_errs.append((diff.max().item(), bool(
+                (diff <= FLASH_TOL + FLASH_RTOL * want.abs()).all())))
+        del qkv
+        with plain_attention(), moe_routes(fast_routes, replay=True):
+            plain, _ = run_prefill(ccfg)
+        prefill_err = logit_errs(fast, plain)
+        routes = {}
+        if ccfg.num_experts:
+            # the same plain prefill routing on its own
+            with plain_attention(), moe_routes(free_routes):
+                free, _ = run_prefill(ccfg)
+            routes = {"prefill_unpinned_max_rel_err":
+                      logit_errs(fast, free)[1],
+                      "routes_agree": statistics.mean(
+                          (a == b).all(-1).float().mean().item()
+                          for a, b in zip(fast_routes, free_routes))}
+            del free
+        bf16_errs = teacher_forced(ccfg, cache)
+        decode_errs = bf16_errs
+        if exact:
+            import dataclasses
+            f32 = dataclasses.replace(ccfg, compute_dtype="float32")
+            with plain_attention():
+                _, c32 = prefill(f32, params, {"tokens": tokens},
+                                 init_cache(f32, B, P + G,
+                                            dtype=torch.float32,
+                                            device="cuda"))
+            decode_errs = teacher_forced(f32, c32)
+            del c32
         # one more decode step, rewritten at the same position each call
         pos = torch.full((1,), P + TEACHER_STEPS, dtype=torch.long,
                          device="cuda")
         step_tok = seq[:, P + TEACHER_STEPS:P + TEACHER_STEPS + 1]
         decode_trace = device_trace(
             lambda: decode_step(cfg, params, step_tok, cache, pos), 10)
-    prefill_trace = device_trace(run_prefill, 5)
     torch.cuda.synchronize()
-    row = {"phase": "serve", "batch": B, "prompt_len": P, "generated": G,
+    kv = [x for k, c in cache.items() if k in ("kv", "attn_kv")
+          for x in c.values()]
+    row = {"phase": name, "arch": cfg.name, "layers": cfg.num_layers,
+           "batch": B, "prompt_len": P, "generated": G,
            "launches": launches, "prefill_ms": prefill_ms,
            "generate_ms": gen_ms,
            "decode_ms_per_token": (gen_ms - prefill_ms) / (G - 1),
            "tokens_per_s": B * G / (gen_ms / 1e3),
            "max_memory_allocated": peak,
-           "kv_cache_bytes": sum(x.numel() * x.element_size()
-                                 for x in cache["kv"].values()),
+           "kv_cache_bytes": sum(x.numel() * x.element_size() for x in kv),
+           "cache_bytes": sum(x.numel() * x.element_size()
+                              for c in cache.values() for x in c.values()),
            "param_bytes": sum(x.numel() * x.element_size()
                               for x in tree_leaves(params)),
+           "check_capacity_factor": ccfg.capacity_factor
+           if ccfg.num_experts else None,
            "prefill_trace": prefill_trace, "decode_trace": decode_trace,
            "prefill_max_abs_err": prefill_err[0],
            "prefill_max_rel_err": prefill_err[1],
            "decode_max_abs_err": [e[0] for e in decode_errs],
            "decode_max_rel_err": [e[1] for e in decode_errs],
+           "decode_held_in": "float32" if exact else ccfg.compute_dtype,
+           "decode_bf16_max_rel_err": [e[1] for e in bf16_errs], **routes,
+           "prefill_logits_held": hold_logits,
+           "prefill_flash_max_abs_err": max((e[0] for e in layer_errs),
+                                            default=None),
            "finite": bool(torch.isfinite(fast).all()),
            "sample_output": out[0, P:P + 8].tolist(), "card": smi_line()}
     emit(row)
-    if not (row["finite"] and max(e[1] for e in [prefill_err, *decode_errs])
-            <= MODEL_TOL):
-        raise AssertionError(f"serve: prefill {prefill_err}, decode "
-                             f"{decode_errs} against {MODEL_TOL}")
+    held = [*decode_errs, prefill_err] if hold_logits else decode_errs
+    if not (row["finite"] and max(e[1] for e in held) <= MODEL_TOL
+            and all(ok for _, ok in layer_errs)
+            and len(layer_errs) == expect.get("gqa_flash_attention", 0)):
+        raise AssertionError(f"{name}: prefill {prefill_err}, decode "
+                             f"{decode_errs} against {MODEL_TOL}, flash on "
+                             f"the prefill's inputs {layer_errs}")
     del server, params, cache, fast, plain
     torch.cuda.empty_cache()
     return launches
@@ -1889,6 +2062,177 @@ def phase_train_tokens() -> dict:
 
         return phase_path("train_tokens",
                           TOKENS_ARGS + ["--data-path", str(path)], watch)
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: --grad-compression, and the MoE, SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+def _es_args(arch: str, meta: int, mini: int, full: bool = True) -> list:
+    """Serial ES at sequence 512 over 1,024 synthetic samples, 4 steps."""
+    return ["--arch", arch, *(["--full"] if full else []), "--method",
+            "es", "--seq-len", "512", "--max-steps", "4", "--device",
+            "cuda", "--meta-batch", str(meta), "--minibatch", str(mini),
+            "--n-samples", "1024"]
+
+
+# mamba2-780m at its published widths and depth (48 layers, d 1,536, state
+# 128, vocab 50,304): S1's traffic; no attention, so no flash launch
+MAMBA2_ARGS = _es_args("mamba2-780m", 32, 8)
+# zamba2-2.7b at its published widths and depth (54 Mamba2 layers, d 2,560,
+# 9 sites of the shared block with 32 heads of 80, d_ff 10,240)
+ZAMBA2_ARGS = _es_args("zamba2-2.7b", 16, 4)
+# arctic's smoke config (8 experts top-2, a dense residual, bf16 weights):
+# the MoE step, its routing and its kernels at S1's traffic
+MOE_ARGS = _es_args("arctic-480b", 32, 8, full=False)
+# S1 with int8 gradient compression and error feedback
+GC_ARGS = TRAIN_ARGS + ["--grad-compression"]
+FAMILY_ARGS = {"train_mamba2": MAMBA2_ARGS, "train_zamba2": ZAMBA2_ARGS,
+               "train_moe": MOE_ARGS, "train_gc": GC_ARGS}
+
+
+def scoring_watch(tr):
+    """A ``phase_path`` watch: the first scoring leg's per-sample losses
+    (the kernels' forward) against the plain forward (``scoring=False``
+    under no_grad) on the same batch and weights, taken inside the leg,
+    before the step updates the weights; the plain forward launches no
+    kernel. After the run, the scoring and training legs of one more step
+    (``family_legs``)."""
+    from repro_torch.core import engine
+    inner = engine.lm_per_sample_loss
+    rec = {}
+
+    def spy(cfg, params, batch, *, scoring=False, **kw):
+        out = inner(cfg, params, batch, scoring=scoring, **kw)
+        if scoring and "err" not in rec:
+            with torch.no_grad():
+                plain, _ = inner(cfg, params, batch, scoring=False)
+            rec["err"] = (out[0] - plain).abs().max().item()
+            rec["finite"] = bool(torch.isfinite(out[0]).all())
+            rec["losses"] = out[0][:4].tolist()
+        return out
+    engine.lm_per_sample_loss = spy
+
+    def check(tr, out):
+        engine.lm_per_sample_loss = inner
+        name = tr.tc.arch + ("" if tr.tc.smoke else " full")
+        emit({"phase": "scoring_check", "arch": name, **rec,
+              "legs": family_legs(tr), "card": smi_line()})
+        if not (rec.get("finite") and rec["err"] <= MODEL_TOL):
+            raise AssertionError(f"{name}: scoring forward against the "
+                                 f"plain forward: {rec}")
+    return check
+
+
+def family_legs(tr) -> dict:
+    """The scoring leg (no-grad forward with the kernels, the store
+    update) and the training leg (forward + backward of the minibatch) of
+    one serial-ES step at the trainer's shapes: host clock to a device
+    sync (median of 3) and device time (torch.profiler, 2 calls)."""
+    from repro_torch.core.selection import select_minibatch
+    eng, st = tr.engine, tr.state
+    batch = tr._place(tr.ds.batch(tr.sampler.batch_ids(0, 0)))
+    w, _, _ = eng._score_leg(st, batch)
+    idx = select_minibatch("es", w, eng.es_cfg.minibatch,
+                           generator=st.generator)
+    sel = {k: v[idx.long()] for k, v in batch.items()}
+    legs = {"scoring": lambda: eng._score_leg(st, batch),
+            "training": lambda: eng._loss_and_grads(st.params, sel)}
+    out = {}
+    for name, fn in legs.items():
+        out[name] = {"wall_ms": wall_ms(fn, 3),
+                     **device_trace(fn, reps=2)}
+    return out
+
+
+def grad_compression_watch(tr):
+    """A ``phase_path`` watch for ``train_gc``: after the run, the
+    compression leg (``compress_decompress`` over every gradient leaf, as
+    ``ESEngine._optim`` runs it: host clock to a device sync and device
+    time), the residuals' bytes, and ``compress_decompress`` of one
+    gradient leaf on the card against the same function on a CPU copy,
+    bitwise (codes, scales, dequantized values and the new residual)."""
+    from repro_torch.distributed.compression import compress_decompress
+    from repro_torch.models.transformer import tree_leaves
+
+    def check(tr, out):
+        eng, st = tr.engine, tr.state
+        batch = tr._place(tr.ds.batch(tr.sampler.batch_ids(0, 0)))
+        sel = {k: v[:eng.es_cfg.minibatch] for k, v in batch.items()}
+        _, _, grads = eng._loss_and_grads(st.params, sel)
+        pairs = list(zip(tree_leaves(grads), tree_leaves(st.grad_err)))
+
+        def leg():
+            return [compress_decompress(g, e) for g, e in pairs]
+        g, e = grads["layers"]["attn"]["wq"], st.grad_err["layers"]["attn"][
+            "wq"]
+        got = compress_decompress(g, e)
+        want = compress_decompress(g.cpu(), e.cpu())
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+        row = {"phase": "grad_compression",
+               "leaves": len(pairs),
+               "residual_bytes": sum(e.numel() * e.element_size()
+                                     for _, e in pairs),
+               "residual_nonzero": all(bool(e.any()) for _, e in pairs),
+               "leg_wall_ms": wall_ms(leg, 3),
+               **{"leg_" + k: v for k, v in device_trace(leg, 2).items()},
+               "bitwise_leaf": "layers/attn/wq", "leaf_elements": g.numel(),
+               "bitwise_equal": same,
+               "max_abs_err": max((a.cpu() - b).abs().max().item()
+                                  for a, b in zip(got, want)),
+               "card": smi_line()}
+        emit(row)
+        if not (same and row["residual_nonzero"]):
+            raise AssertionError(f"train_gc: {row}")
+    return check
+
+
+FAMILY_WATCH = {"train_mamba2": scoring_watch, "train_zamba2": scoring_watch,
+                "train_moe": scoring_watch,
+                "train_gc": grad_compression_watch}
+
+
+def phase_family(name: str) -> dict:
+    return phase_path(name, FAMILY_ARGS[name], FAMILY_WATCH[name])
+
+
+def grok1_cut():
+    """grok-1-314b at its published widths (d 6,144, 48 heads of 128 over
+    8 kv heads, 8 experts of d_ff 32,768, top-2, vocab 131,072), depth cut
+    64 -> 2 layers to fit one card in float32."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("grok-1-314b"), num_layers=2)
+
+
+def phase_serve_mamba2() -> dict:
+    """mamba2-780m at full width: no attention, so the prefill launches
+    no kernel (and nothing else does). Decode is held to the forward in
+    float32 (``phase_serve``'s ``exact``)."""
+    from repro_torch.configs import get_config
+    return phase_serve("serve_mamba2", get_config("mamba2-780m"),
+                       expect={}, exact=True)
+
+
+def phase_serve_moe() -> dict:
+    """grok-1 at published widths, 2 layers: one flash launch a layer in
+    the prefill (hd 128, 48:8). 16 tokens. The checks run with a dropless
+    capacity factor (= num_experts): a decode step routes its 8 tokens,
+    the full forward 8 x (P + t), and only without drops do the two route
+    alike (``tests/test_decode.py:28-35``); the plain prefill takes the
+    kernel run's routes and decode is held to the forward in float32
+    (``phase_serve``). The prefill's logits differ from the plain
+    prefill's by ~0.12 (routes pinned; 0.155 not), past the 5e-2 bound:
+    the experts' gain at grok's widths amplifies the attentions' last-ulp
+    differences; they are reported, and the kernel is held on the
+    prefill's own (q, k, v) of both layers."""
+    import dataclasses
+    cfg = grok1_cut()
+    return phase_serve("serve_moe", cfg, gen=16,
+                       expect={"gqa_flash_attention": cfg.num_layers},
+                       check_cfg=dataclasses.replace(
+                           cfg, capacity_factor=float(cfg.num_experts)),
+                       exact=True, hold_logits=False)
 
 
 # ---------------------------------------------------------------------------
@@ -2550,14 +2894,14 @@ def phase_prune() -> None:
 # train_eswp (8 of 12 steps), after its second prune decision; train_grown
 # at the end of epoch 0, after its grow
 RESUME_PATHS = {"train": 2, "train_pipelined": 2, "train_quant": 2,
-                "train_eswp": 8, "train_grown": 2}
+                "train_eswp": 8, "train_grown": 2, "train_gc": 2}
 # S1 over 64 samples in a StreamingSource: a step hook appends 32 rows and
 # grows at step 1, so epoch 1 walks 96 rows (3 steps); 4 steps in all
 GROWN_ARGS = TRAIN_ARGS + ["--n-samples", "64", "--epochs", "2",
                            "--max-steps", "4"]
 
 
-def _grown_trainer(args, **tc_fields):
+def _grown_trainer(args, model_cfg=None, **tc_fields):
     """The trainer of ``args`` over a StreamingSource, with a step hook
     that appends 32 fixed rows and grows at step 1 (in epoch 0)."""
     from repro_torch.data.pipeline import StreamingSource, get_source
@@ -2567,9 +2911,9 @@ def _grown_trainer(args, **tc_fields):
     fields = set(train.TrainerConfig.__dataclass_fields__)
     tc = train.TrainerConfig(**{**{k: v for k, v in vars(ns).items()
                                     if k in fields}, **tc_fields})
-    tr = train.Trainer(tc, source=StreamingSource(get_source(
-        "synthetic", n_samples=tc.n_samples, seq_len=tc.seq_len,
-        vocab_size=64, seed=tc.seed)))
+    tr = train.Trainer(tc, model_cfg=model_cfg, source=StreamingSource(
+        get_source("synthetic", n_samples=tc.n_samples, seq_len=tc.seq_len,
+                   vocab_size=64, seed=tc.seed)))
     tok, lab = _synthetic_stream(tc.seq_len, 64, seed=2, n=32)
 
     def grow_at_step_1(t, epoch):
@@ -2579,7 +2923,12 @@ def _grown_trainer(args, **tc_fields):
     return tr
 
 
-RESUME_ARGS = {**PATH_ARGS, "train_grown": GROWN_ARGS}
+RESUME_ARGS = {**PATH_ARGS, "train_grown": GROWN_ARGS, "train_gc": GC_ARGS}
+# the script's time: a resume is bitwise or not whatever the depth, so
+# every path but ``train`` (the checkpoint cost at full depth) resumes
+# qwen1.5-0.5b at its published widths cut to 4 of its 24 layers; the
+# write of its 5.57 GB checkpoint took most of the phase's 214 s
+RESUME_LAYERS = 4
 RESUME_BUILD = {"train_grown": _grown_trainer}
 
 
@@ -2609,8 +2958,13 @@ def _resume_path(name: str, ckpt_dir: Path) -> dict:
     ``prev_epoch_losses`` must be bitwise equal. The interrupted run of
     ``train`` also saves asynchronously at step 2 (then the final save
     overwrites that step)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
     args, stop = RESUME_ARGS[name], RESUME_PATHS[name]
-    build = RESUME_BUILD.get(name, _trainer)
+    cfg = None if name == "train" else dataclasses.replace(
+        get_config("qwen1.5-0.5b"), num_layers=RESUME_LAYERS)
+    build = partial(RESUME_BUILD.get(name, _trainer), model_cfg=cfg)
     ref = build(args)
     ref_out = ref.train()
     want = ref.engine.state_dict(ref.state)
@@ -2735,24 +3089,38 @@ def main() -> None:
     if len(sys.argv) > 1:
         sys.exit("usage: chip_smoke.py [--store-bench SRC | --segsum-bench "
                  "SRC]")
-    phase_build()
+    seconds = {}
+
+    def timed(name, fn):
+        """Run a phase, keeping its wall seconds (the script's budget)."""
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed("build", phase_build)
     phase_device()
-    errs = phase_check()
-    times = phase_time()
-    phase_model()
+    errs = timed("check", phase_check)
+    times = timed("time", phase_time)
+    timed("model", phase_model)
     launches = {}
-    runs = [lambda p=p: phase_path(p) for p in PATH_ARGS] + [
-        phase_train_tokens, phase_serve, phase_service]
-    for run in runs:
-        for k, v in run().items():
+    runs = {**{p: lambda p=p: phase_path(p) for p in PATH_ARGS},
+            "train_tokens": phase_train_tokens, "serve": phase_serve,
+            "service": phase_service,
+            **{p: lambda p=p: phase_family(p) for p in FAMILY_ARGS},
+            "serve_mamba2": phase_serve_mamba2,
+            "serve_moe": phase_serve_moe}
+    for name, run in runs.items():
+        for k, v in timed(name, run).items():
             launches[k] = launches.get(k, 0) + v
-    phase_legs()
-    phase_legs_packed()
-    phase_data()
-    phase_legs_pipelined()
-    phase_memory()
-    phase_prune()
-    phase_resume()
+    for name, fn in (("legs", phase_legs), ("legs_packed", phase_legs_packed),
+                     ("data", phase_data),
+                     ("legs_pipelined", phase_legs_pipelined),
+                     ("memory", phase_memory), ("prune", phase_prune),
+                     ("resume", phase_resume)):
+        timed(name, fn)
+    emit({"phase": "seconds", "seconds": seconds,
+          "total": round(sum(seconds.values()), 1)})
     kernels = []
     for name, meta in KERNELS.items():
         t = times[name]

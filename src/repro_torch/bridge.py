@@ -3,10 +3,15 @@
 ``params_from_jax`` converts the pytree of ``repro/models/transformer.py:
 init_lm`` (:204-257), given as numpy arrays (``jax.device_get`` of it, or
 ``np.asarray`` of each leaf), into the port's parameter dict: the same
-nested keys, stacked ``layers/*`` with the leading L axis, and the
+nested keys, stacked ``layers/*`` with the leading L axis (the hybrid's
+with (n_sites, every), beside its unstacked ``shared`` block), and the
 ``(d_in, d_out)`` layout of ``x @ W`` kept as it is. ``embed/tok`` is the
 (V, d) table; ``embed/head`` (d, V) is present only for an untied head
 (``repro/models/layers.py:210-228``); with tying the head is ``tok.T``.
+The dense, moe, ssm and hybrid trees convert; vlm and encdec keys raise.
+A bfloat16 leaf (``ml_dtypes.bfloat16`` in numpy, e.g. arctic's
+``param_dtype``), which ``torch.from_numpy`` refuses, goes through
+float32 (exact) and becomes ``torch.bfloat16``.
 
 ``scores_from_jax`` converts the JAX ``ESScores`` or ``QuantizedScores``
 (``repro/core/scores.py``) into the port's dataclass of the same fields.
@@ -22,7 +27,9 @@ import torch
 
 from .core.scores import ESScores, QuantizedScores
 
-_DENSE_LAYER_KEYS = {"attn", "mlp", "ln1", "ln2"}
+# a block of attention + MLP (dense) or + MoE [+ dense residual] (moe)
+_ATTN_BLOCK_KEYS = {"attn", "mlp", "moe", "dense_res", "ln1", "ln2"}
+_MAMBA_BLOCK_KEYS = {"mamba", "ln1"}
 _QUANT_FIELDS = ("s_q", "w_q", "seen_q", "s_scale", "w_scale", "err_rows",
                  "err_seq", "err_s", "err_w")
 _F32_FIELDS = ("s", "w", "seen")
@@ -31,13 +38,28 @@ _F32_FIELDS = ("s", "w", "seen")
 def _convert(tree: Any, device) -> Any:
     if isinstance(tree, dict):
         return {k: _convert(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def _attn_block(block: Any) -> bool:
+    """An attention block: attn, one feed-forward (mlp or moe), and only
+    the keys such a block has."""
+    return isinstance(block, dict) and "attn" in block \
+        and ("mlp" in block) != ("moe" in block) \
+        and not set(block) - _ATTN_BLOCK_KEYS \
+        and ("dense_res" not in block or "moe" in block)
 
 
 def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     """JAX ``init_lm`` pytree (numpy leaves) -> the port's parameter dict.
 
-    Raises ``ValueError`` for a tree that is not a dense decoder's.
+    Raises ``ValueError`` for a tree of no ported family: the layers must
+    be attention blocks (dense, moe) or Mamba2 blocks (ssm), or Mamba2
+    blocks with one ``shared`` attention block (hybrid).
     """
     embed = tree.get("embed")
     if not isinstance(embed, dict) or "tok" not in embed:
@@ -46,13 +68,20 @@ def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     if extra:
         raise ValueError(f"params_from_jax: unexpected embed keys {extra}")
     layers = tree.get("layers")
-    if not isinstance(layers, dict) or not {"attn", "mlp"} <= set(layers) \
-            or set(layers) - _DENSE_LAYER_KEYS:
-        raise ValueError("params_from_jax: layers must hold attn, mlp and "
-                         "optional ln1/ln2 (family 'dense')")
-    extra = set(tree) - {"embed", "layers", "final_norm"}
+    mamba = isinstance(layers, dict) and "mamba" in layers \
+        and not set(layers) - _MAMBA_BLOCK_KEYS
+    if not (mamba or _attn_block(layers)):
+        raise ValueError("params_from_jax: layers must hold attn with mlp "
+                         "or moe (families 'dense', 'moe') or mamba "
+                         "(families 'ssm', 'hybrid'), and optional norms")
+    if "shared" in tree and not (mamba and _attn_block(tree["shared"])):
+        raise ValueError("params_from_jax: a shared block goes with mamba "
+                         "layers and is an attention block (family "
+                         "'hybrid')")
+    extra = set(tree) - {"embed", "layers", "final_norm", "shared"}
     if extra:
-        raise ValueError(f"params_from_jax: keys of another family {extra}")
+        raise ValueError(f"params_from_jax: keys of a family not ported "
+                         f"yet {extra}")
     tok = np.asarray(embed["tok"])
     if "head" in embed and np.asarray(embed["head"]).shape != tok.shape[::-1]:
         raise ValueError("params_from_jax: embed/head must be (d, V)")

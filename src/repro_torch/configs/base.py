@@ -2,8 +2,9 @@
 ModelConfig``, field for field, so that a JAX config converts with
 ``ModelConfig(**dataclasses.asdict(jax_cfg))``.
 
-The port runs ``family == "dense"`` only; the other families' fields are
-kept so the two configs stay interchangeable.
+The port runs the families ``PORTED`` names (dense, moe, ssm, hybrid);
+``vlm`` and ``encdec`` raise "not ported yet" (``require_ported``). Their
+fields are kept all the same, so the two configs stay interchangeable.
 """
 from __future__ import annotations
 
@@ -82,10 +83,71 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.num_heads
 
+    @property
+    def is_encdec(self) -> bool:
+        return self.num_encoder_layers > 0
 
-def require_dense(cfg: ModelConfig) -> None:
-    """The port runs the dense family only (slice 1 of the port)."""
-    if cfg.family != "dense":
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic archs (ssm / hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def has_decoder(self) -> bool:
+        return True  # every assigned arch has a decode path
+
+    def n_params(self) -> int:
+        """Analytic parameter count (the reference's formula)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.resolved_head_dim()
+        qdim, kvdim = self.num_heads * hd, self.num_kv_heads * hd
+        attn = d * qdim + 2 * d * kvdim + qdim * d
+        if self.mlp_kind == "swiglu":
+            mlp = 3 * d * f
+        else:
+            mlp = 2 * d * f
+        if self.num_experts > 0:
+            moe = self.num_experts * (3 * d * f) + d * self.num_experts
+            if self.moe_dense_residual:
+                moe += 3 * d * self.dense_residual_d_ff
+            per_layer_ff = moe
+        else:
+            per_layer_ff = mlp
+        ssm = 0
+        if self.ssm_state > 0:
+            dinner = self.ssm_expand * d
+            nh = dinner // self.ssm_head_dim
+            # in_proj (z,x,B,C,dt) + out_proj + conv + A,D
+            ssm = d * (2 * dinner + 2 * self.ssm_state + nh) + dinner * d \
+                + self.ssm_conv_width * (dinner + 2 * self.ssm_state) + 2 * nh
+        if self.family in ("ssm", "hybrid"):
+            per_layer = ssm  # the hybrid's shared block is counted below
+        else:
+            per_layer = attn + per_layer_ff
+        total = self.num_layers * per_layer
+        if self.family == "hybrid" and self.hybrid_attn_every:
+            total += attn + 3 * d * f if f else attn  # one shared block
+        if self.is_encdec:
+            total += self.num_encoder_layers * (attn + per_layer_ff)
+            total += self.num_layers * attn  # decoder cross-attention
+        if self.cross_attn_every:
+            n_cross = self.num_layers // self.cross_attn_every
+            total += n_cross * (attn + per_layer_ff)
+        total += v * d * (1 if self.tie_embeddings else 2)
+        return total
+
+
+# the families the port runs; vlm and encdec need modality-stub inputs,
+# cross-attention and the encoder's caches, which are not ported yet
+PORTED = ("dense", "moe", "ssm", "hybrid")
+
+
+def require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
-            f"PyTorch port runs family 'dense'")
+            f"PyTorch port runs families {PORTED}")

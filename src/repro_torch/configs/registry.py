@@ -1,9 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution (copy of
 ``repro/configs/registry.py``).
 
-The dense architectures are copied here with their exact published
-hyper-parameters and smoke configs. Every other id of the JAX registry
-resolves to ``NotImplementedError``: its family is not ported yet.
+The dense, MoE, SSM and hybrid architectures are copied here with their
+exact published hyper-parameters and smoke configs. The vlm and encdec
+ids of the JAX registry resolve to ``NotImplementedError``: their
+families are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,14 +18,14 @@ _ARCH_MODULES: Dict[str, str] = {
     "olmo-1b": "olmo_1b",
     "qwen1.5-0.5b": "qwen1p5_0p5b",
     "qwen2-72b": "qwen2_72b",
+    "zamba2-2.7b": "zamba2_2p7b",
+    "mamba2-780m": "mamba2_780m",
+    "grok-1-314b": "grok1_314b",
+    "arctic-480b": "arctic_480b",
 }
 # ids of the JAX registry whose family the port does not run yet
 _NOT_PORTED: Dict[str, str] = {
-    "zamba2-2.7b": "hybrid",
-    "mamba2-780m": "ssm",
     "seamless-m4t-large-v2": "encdec",
-    "grok-1-314b": "moe",
-    "arctic-480b": "moe",
     "llama-3.2-vision-11b": "vlm",
 }
 

@@ -9,7 +9,10 @@ One serial-ES step (``es_step``) runs in four legs:
    kernel, with the drift EMAs of ``CadenceState`` folded in (``_observe``);
 3. Gumbel top-k selection of the mini-batch (or top-k for ``order``);
 4. forward and backward on the mini-batch in plain autograd, then one
-   AdamW step (``_optim``).
+   AdamW step (``_optim``); with ``OptConfig.compress_grads`` the
+   gradients first go through the int8 quantize -> dequantize with error
+   feedback (``distributed/compression.py``), the residuals carried in
+   ``TrainState.grad_err``.
 
 ``baseline_step`` trains the whole meta-batch and updates the store from
 the training forward's free per-sample losses. ``scheduled_step`` runs the
@@ -48,6 +51,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.compression import ErrorFeedbackState, compress_decompress
 from ..models.transformer import (init_lm, lm_per_sample_loss,
                                   lm_per_segment_loss, tree_leaves)
 from ..optim.adamw import OptConfig, OptState, apply_updates, init_opt_state
@@ -129,6 +133,7 @@ class TrainState:
     generator: torch.Generator    # selection noise
     cadence: CadenceState
     pending_w: torch.Tensor       # (B,) pipelined ES: carried weights
+    grad_err: Optional[Dict] = None  # error-feedback residuals (f32)
 
 
 def init_train_state(model_cfg: ModelConfig, es_cfg: ESConfig,
@@ -139,7 +144,9 @@ def init_train_state(model_cfg: ModelConfig, es_cfg: ESConfig,
     """Fresh state; ``params`` (e.g. from ``bridge.params_from_jax``)
     replaces the random init. Parameters and selection noise come from two
     generators seeded from ``seed``. The score leaf is ``store``'s;
-    ``pending_w`` starts at 1 for each of the ``meta_batch`` rows."""
+    ``pending_w`` starts at 1 for each of the ``meta_batch`` rows;
+    ``grad_err`` is float32 zeros per parameter when the optimizer
+    compresses its gradients."""
     store = store if store is not None else make_store()
     if params is None:
         pgen = torch.Generator(device=device).manual_seed(seed)
@@ -149,7 +156,9 @@ def init_train_state(model_cfg: ModelConfig, es_cfg: ESConfig,
                       scores=store.init_leaf(es_cfg.n_train, device),
                       generator=sel_gen, cadence=init_cadence(device),
                       pending_w=torch.ones(meta_batch, dtype=torch.float32,
-                                           device=device))
+                                           device=device),
+                      grad_err=ErrorFeedbackState.init(params)
+                      if opt_cfg.compress_grads else None)
 
 
 def _gather_batch(batch: Batch, idx: torch.Tensor) -> Batch:
@@ -292,6 +301,19 @@ class ESEngine:
 
     def _optim(self, state: TrainState, grads: Dict,
                metrics: Dict[str, torch.Tensor]) -> None:
+        """One optimizer step; every step flavour ends here. With
+        ``compress_grads`` each gradient leaf is replaced by its int8
+        quantize -> dequantize (the lossy leg of the compressed DP
+        all-reduce, on the wire's per-block grid) and its residual is
+        written over ``grad_err`` in place, leaf by leaf."""
+        if self.opt_cfg.compress_grads:
+            out = []
+            for g, err in zip(tree_leaves(grads),
+                              tree_leaves(state.grad_err)):
+                deq, new_err = compress_decompress(g, err)
+                err.copy_(new_err)
+                out.append(deq)
+            grads = _rebuild(grads, iter(out))
         lr_scale = self.schedule(state.opt.step)
         metrics.update(apply_updates(self.opt_cfg, state.params, grads,
                                      state.opt, lr_scale))
@@ -619,9 +641,9 @@ class ESEngine:
         """``state`` as nested dicts of tensors, for a checkpoint: the
         parameters, the optimizer's moments and step, the store's leaf,
         ``pending_w``, the cadence (a pending servo settled first: it is
-        what the next step would read) and the selection generator's
-        state (a CUDA generator's is its seed and offset; re-seeding it
-        would draw other noise)."""
+        what the next step would read), the selection generator's state
+        (a CUDA generator's is its seed and offset; re-seeding it would
+        draw other noise) and, with gradient compression, ``grad_err``."""
         state.cadence = self._settle(state.cadence)
         cad, opt = state.cadence, state.opt
         dev = state.pending_w.device
@@ -641,6 +663,8 @@ class ESEngine:
                 "generator": state.generator.get_state()}
         if opt.v is not None:
             tree["opt"]["v"] = opt.v
+        if state.grad_err is not None:
+            tree["grad_err"] = state.grad_err
         return tree
 
     def load_state_dict(self, state: TrainState, tree: Dict) -> TrainState:
@@ -660,7 +684,7 @@ class ESEngine:
                                  period=int(cad["period"]),
                                  last_scored=int(cad["last_scored"]),
                                  since_prune=cad["since_prune"]),
-            pending_w=tree["pending_w"])
+            pending_w=tree["pending_w"], grad_err=tree.get("grad_err"))
 
 
 class EpochSession:

@@ -33,8 +33,18 @@
 // - TMA loads over the 4-D (B, S, heads, hd) views, zeros past S: Q once,
 //   then K and V through a ring of 64-key stages guarded by full/empty
 //   mbarriers, kept STAGES - 1 tiles ahead of the products by one thread.
-//   The tiles land swizzled (32, 64 or 128 bytes: one row of hd, or of a
-//   64-wide panel at hd = 128), which is the layout wgmma reads.
+//   The tiles land swizzled, in panels of W columns whose rows are the
+//   swizzle (32, 64 or 128 bytes), which is the layout wgmma reads.
+// Head dims: 16, 32, 64, 128 and 80. A panel is the widest of 64, 32 and
+// 16 columns that divides hd: hd 16 and 32 are one panel, 64 one, 128 two
+// of 64, and 80 (zamba2-2.7b's shared attention) five of 16 with the
+// 32-byte swizzle, since 64 and 32 do not divide it. A TMA box's inner
+// extent (W * 2 bytes) is then a multiple of 16 bytes and equals the
+// swizzle, and the QK^T product steps 16 deep through one panel at a time
+// (hd / 16 steps). The P V product is one m64n{hd}k16 wgmma whose
+// MN-major B operand spans the panels (its leading-byte offset is the
+// panel stride). Tile<HD> asserts that its panels tile hd: a width that
+// no panel divides would otherwise drop its last columns.
 // - S = Q K^T is wgmma m64n64k16 with both operands from shared memory;
 //   O += P V is wgmma m64n{hd}k16 with P from registers (the accumulator
 //   layout, converted to bf16, is the A-fragment layout) and V read
@@ -65,9 +75,12 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 struct Tile {
-  static constexpr int W = HD < 64 ? HD : 64;  // panel width, elements
+  // panel width, elements: the widest of 64, 32, 16 that divides HD
+  static constexpr int W = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;
   static constexpr int SWZ = W * 2;            // swizzle: one panel row, bytes
   static constexpr int PANELS = HD / W;
+  static_assert(HD % 16 == 0 && HD % W == 0 && PANELS * W == HD,
+                "the panels must tile the head dim");
   static constexpr int STAGES = HD <= 64 ? 4 : 3;
   static constexpr int Q_PANEL = BQ * SWZ;  // bytes
   static constexpr int KV_PANEL = BKV * SWZ;
@@ -89,6 +102,10 @@ __device__ __forceinline__ void pv_mma(float (&d)[16], const uint32_t (&a)[4],
 __device__ __forceinline__ void pv_mma(float (&d)[32], const uint32_t (&a)[4],
                                        uint64_t b) {
   wgmma_rs_m64n64k16(d, a, b, 1);
+}
+__device__ __forceinline__ void pv_mma(float (&d)[40], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  wgmma_rs_m64n80k16(d, a, b, 1);
 }
 __device__ __forceinline__ void pv_mma(float (&d)[64], const uint32_t (&a)[4],
                                        uint64_t b) {
@@ -345,6 +362,7 @@ extern "C" int repro_flash_attn_bf16(const void* q, const void* k, const void* v
     case 16: return launch<16>(q, k, v, o, B, S, H, KH, causal, scale, st);
     case 32: return launch<32>(q, k, v, o, B, S, H, KH, causal, scale, st);
     case 64: return launch<64>(q, k, v, o, B, S, H, KH, causal, scale, st);
+    case 80: return launch<80>(q, k, v, o, B, S, H, KH, causal, scale, st);
     case 128: return launch<128>(q, k, v, o, B, S, H, KH, causal, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -12,7 +12,7 @@ import torch
 from .._build import check, library, on_device
 from .ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernel's instantiations
 
 
 def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

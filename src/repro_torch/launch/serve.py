@@ -1,14 +1,16 @@
 """Batched serving: prefill, then a greedy or temperature decode loop
-(counterpart of ``repro/launch/serve.py``, dense family).
+(counterpart of ``repro/launch/serve.py``; the dense, moe, ssm and hybrid
+families).
 
     python -m repro_torch.launch.serve --arch qwen1.5-0.5b --full \\
         --batch 8 --prompt-len 512 --gen 64
     python -m repro_torch.launch.serve --device cpu --batch 4 \\
         --prompt-len 16 --gen 16          # smoke config on the CPU
 
-The prompt's prefill takes the flash-attention kernel on the card
-(``models/attention.py:prefill_attn``); each decode step is plain
-PyTorch, as the reference's is XLA. Temperature sampling is
+The prompt's prefill takes the flash-attention kernel on the card for
+every causal attention (``models/attention.py:prefill_attn``; an SSM
+prefill has none); each decode step is plain PyTorch, as the reference's
+is XLA. Temperature sampling is
 ``argmax(logits / T + gumbel)``, the form of ``jax.random.categorical``
 (``sample_next``), with the Gumbel noise from the server's own
 ``torch.Generator`` (other draws than JAX's). The CLI prints one JSON
@@ -25,7 +27,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..configs.base import ModelConfig, require_dense
+from ..configs.base import ModelConfig, require_ported
 from ..configs.registry import get_config, get_smoke_config, list_archs
 from ..models.model import decode_step, init_cache, prefill
 from ..models.transformer import init_lm
@@ -49,7 +51,7 @@ def gumbel_noise(shape, generator: torch.Generator,
 
 
 class Server:
-    """Prefill + decode over the dense model's parameters.
+    """Prefill + decode over a model's parameters.
 
     ``params`` (the port's parameter dict) is read as given, not copied:
     the online service passes the trainer's live tensors, which AdamW
@@ -58,7 +60,7 @@ class Server:
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
                  params: Optional[Dict] = None):
-        require_dense(cfg)
+        require_ported(cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Server: device 'cuda' requested but no CUDA "

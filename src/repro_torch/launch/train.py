@@ -42,8 +42,11 @@ or the synthetic set), through the prefetching data pipeline (on by
 default; ``--no-prefetch``, ``--prefetch-depth``); the f32 or the
 replicated int8 score store (``--quant-scores``), each with its fused
 kernel or its scatter form; checkpoints and a bit-exact resume, mid-epoch
-and with a pipelined held batch included (``--ckpt-dir``). Every other
-flag raises "not ported yet" when it asks for anything but its default.
+and with a pipelined held batch included (``--ckpt-dir``); int8 gradient
+compression with error feedback on one device (``--grad-compression``).
+The dense, MoE, SSM and hybrid families run (``--arch``); vlm and encdec
+raise "not ported yet", as does every other flag that asks for anything
+but its default (``--shard-scores``, ``--quant-wire``).
 ``--device`` (default ``cuda``) and ``--seed`` are the port's own: without
 a GPU the default device raises, and the CPU runs only when asked for.
 
@@ -105,7 +108,7 @@ import numpy as np
 import torch
 
 from ..checkpoint import Checkpointer
-from ..configs.base import ModelConfig, require_dense
+from ..configs.base import ModelConfig, require_ported
 from ..configs.registry import get_config, get_smoke_config, list_archs
 from ..core.annealing import AnnealSchedule
 from ..core.engine import (CadenceConfig, ESConfig, ESEngine,
@@ -164,10 +167,10 @@ class TrainerConfig:
     prefetch_depth: int = 2
     ckpt_dir: Optional[str] = None
     ckpt_every_steps: int = 50
+    grad_compression: bool = False   # int8 EF gradient compression
     # not ported yet: each must keep its default (see _check_supported)
     shard_scores: bool = False
     quant_wire: bool = False
-    grad_compression: bool = False
 
 
 SET_LEVEL = {"eswp", "infobatch", "ucb", "ka", "random"}
@@ -178,7 +181,6 @@ METHODS = ("es", "eswp", "loss", "order", "baseline", "infobatch", "ucb",
 _NOT_PORTED = {
     "shard_scores": "--shard-scores (sharded score store)",
     "quant_wire": "--quant-wire (int8 wire of the sharded store)",
-    "grad_compression": "--grad-compression (int8 gradient wire)",
 }
 
 
@@ -235,7 +237,7 @@ class Trainer:
         torch.backends.cudnn.allow_tf32 = False
         self.model_cfg = model_cfg or (
             get_smoke_config(tc.arch) if tc.smoke else get_config(tc.arch))
-        require_dense(self.model_cfg)
+        require_ported(self.model_cfg)
         if source is None:
             source = get_source(tc.source, path=tc.data_path,
                                 n_samples=tc.n_samples, seq_len=tc.seq_len,
@@ -275,7 +277,8 @@ class Trainer:
             beta1=beta1, beta2=beta2, minibatch=minibatch,
             n_train=self.n_train, fused_scores=tc.fused_scores)
         self.opt_cfg = OptConfig(kind=tc.optimizer, lr=tc.lr,
-                                 state_dtype=self.model_cfg.optimizer_dtype)
+                                 state_dtype=self.model_cfg.optimizer_dtype,
+                                 compress_grads=tc.grad_compression)
         self.anneal = AnnealSchedule.from_ratio(tc.epochs, tc.anneal_ratio)
         # an epoch over a kept-set runs fewer steps: the schedules' horizon
         # is the planned per-epoch count, pruned where pruning is active
@@ -695,11 +698,13 @@ def build_parser() -> argparse.ArgumentParser:
                     "a background thread")
     ap.add_argument("--prefetch-depth", type=int, default=2,
                     help="batches the background thread runs ahead")
+    ap.add_argument("--grad-compression", action="store_true",
+                    help="int8 quantize -> dequantize of the gradients "
+                    "with error feedback before each optimizer step")
     # flags of the JAX CLI that the port does not run yet: accepted, and
     # they raise "not ported yet" unless left at their defaults
     ap.add_argument("--shard-scores", action="store_true")
     ap.add_argument("--quant-wire", action="store_true")
-    ap.add_argument("--grad-compression", action="store_true")
     return ap
 
 

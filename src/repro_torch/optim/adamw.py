@@ -33,6 +33,8 @@ class OptConfig:
     momentum: float = 0.9            # sgdm
     grad_clip_norm: float = 1.0      # 0 disables
     state_dtype: str = "float32"     # m/v dtype
+    compress_grads: bool = False     # int8 + error feedback (see
+    #                                  distributed/compression.py)
 
 
 @dataclasses.dataclass

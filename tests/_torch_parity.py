@@ -48,14 +48,16 @@ def smoke_cfg():
                                compute_dtype="float32")
 
 
-def make_pair(method="es", freq=None, cadence=None, seed=5):
+def make_pair(method="es", freq=None, cadence=None, seed=5, opt=None):
     """-> (jax engine, jax state, port engine, port state, rng).
-    ``freq`` and ``cadence`` are keyword dicts of ``FreqSchedule`` and
-    ``CadenceConfig``, built on each side."""
+    ``freq``, ``cadence`` and ``opt`` are keyword dicts of
+    ``FreqSchedule``, ``CadenceConfig`` and ``OptConfig`` (beside its lr
+    of 1e-3), built on each side."""
     cfg = smoke_cfg()
     es_cfg = jengine.ESConfig(method=method, minibatch=b, n_train=N,
                               seq_chunk=0)
-    opt_cfg = OptConfig(lr=1e-3)
+    opt = opt or {}
+    opt_cfg = OptConfig(lr=1e-3, **opt)
     jfreq = jfrequency.FreqSchedule(**freq) if freq else None
     jcad = jengine.CadenceConfig(**cadence) if cadence else None
     jeng = jengine.ESEngine(cfg, es_cfg, opt_cfg,
@@ -72,7 +74,7 @@ def make_pair(method="es", freq=None, cadence=None, seed=5):
 
     tcfg = ModelConfig(**dataclasses.asdict(cfg))
     t_es = tengine.ESConfig(method=method, minibatch=b, n_train=N)
-    t_opt = TOptConfig(lr=1e-3)
+    t_opt = TOptConfig(lr=1e-3, **opt)
     tfreq = tfrequency.FreqSchedule(**freq) if freq else None
     tcad = tengine.CadenceConfig(**cadence) if cadence else None
     teng = tengine.ESEngine(tcfg, t_es, t_opt,

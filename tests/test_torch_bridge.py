@@ -90,9 +90,16 @@ def test_port_imports_neither_jax_nor_repro():
         "       'repro_torch.checkpoint.checkpointer',\n"
         "       'repro_torch.data.pipeline.admission',\n"
         "       'repro_torch.models.model', 'repro_torch.launch.serve',\n"
-        "       'repro_torch.launch.service'}\n"
+        "       'repro_torch.launch.service',\n"
+        "       'repro_torch.distributed',\n"
+        "       'repro_torch.distributed.compression',\n"
+        "       'repro_torch.models.moe', 'repro_torch.models.ssm',\n"
+        "       'repro_torch.configs.mamba2_780m',\n"
+        "       'repro_torch.configs.zamba2_2p7b',\n"
+        "       'repro_torch.configs.grok1_314b',\n"
+        "       'repro_torch.configs.arctic_480b'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
-        "assert len(names) >= 53, names\n"
+        "assert len(names) >= 62, names\n"
         "print('OK', len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

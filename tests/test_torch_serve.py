@@ -13,7 +13,8 @@ head) at float32, from parameters converted with ``params_from_jax``:
   (bfloat16 caches on both sides), and rows are independent;
 * ``sample_next`` fed JAX's Gumbel draws equals ``jax.random.categorical``;
 * ``repro_torch.launch.serve`` runs with ``--device cpu`` and refuses the
-  default ``cuda`` without a GPU; other families raise "not ported".
+  default ``cuda`` without a GPU; the vlm and encdec families raise "not
+  ported".
 """
 import dataclasses
 import json
@@ -170,9 +171,10 @@ def test_serve_cli_on_cpu_and_default_device(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tserve.main(["--batch", "1", "--gen", "1"])
-    mamba = ModelConfig(**dataclasses.asdict(get_smoke_config(
-        "mamba2-780m")))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tserve.Server(mamba, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tmodel.init_cache(mamba, 1, 4, device="cpu")
+    # vlm and encdec are not ported (moe, ssm, hybrid: test_torch_families)
+    for arch in ("llama-3.2-vision-11b", "seamless-m4t-large-v2"):
+        other = ModelConfig(**dataclasses.asdict(get_smoke_config(arch)))
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tserve.Server(other, device="cpu")
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tmodel.init_cache(other, 1, 4, device="cpu")

@@ -124,13 +124,15 @@ def test_default_device_raises_without_gpu():
         ttrain.Trainer(ttrain.TrainerConfig(**COMMON))
 
 
-# the file sources and host slicing are ported (tests/test_torch_sources.py)
-@pytest.mark.parametrize("flags", [["--grad-compression"],
+# the file sources and host slicing are ported (tests/test_torch_sources.py),
+# and --grad-compression and the moe/ssm/hybrid families
+# (tests/test_torch_compression.py, tests/test_torch_families.py)
+@pytest.mark.parametrize("flags", [["--shard-scores", "--pipelined"],
                                    ["--shard-scores"],
                                    ["--quant-scores", "--quant-wire"],
                                    ["--shard-scores", "--quant-scores"],
-                                   ["--grad-compression", "--pipelined"],
-                                   ["--arch", "mamba2-780m"],
+                                   ["--arch", "llama-3.2-vision-11b"],
+                                   ["--arch", "seamless-m4t-large-v2"],
                                    ["--method", "grad-norm"]])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="not ported"):
