@@ -1,10 +1,7 @@
 """Model configuration of the port: a copy of ``repro/configs/base.py:
 ModelConfig``, field for field, so that a JAX config converts with
-``ModelConfig(**dataclasses.asdict(jax_cfg))``.
-
-The port runs the families ``PORTED`` names (dense, moe, ssm, hybrid);
-``vlm`` and ``encdec`` raise "not ported yet" (``require_ported``). Their
-fields are kept all the same, so the two configs stay interchangeable.
+``ModelConfig(**dataclasses.asdict(jax_cfg))``. The port runs all six
+families: dense, moe, ssm, hybrid, vlm and encdec.
 """
 from __future__ import annotations
 
@@ -140,14 +137,3 @@ class ModelConfig:
         total += v * d * (1 if self.tie_embeddings else 2)
         return total
 
-
-# the families the port runs; vlm and encdec need modality-stub inputs,
-# cross-attention and the encoder's caches, which are not ported yet
-PORTED = ("dense", "moe", "ssm", "hybrid")
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
-            f"PyTorch port runs families {PORTED}")

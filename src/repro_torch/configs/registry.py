@@ -1,10 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution (copy of
 ``repro/configs/registry.py``).
 
-The dense, MoE, SSM and hybrid architectures are copied here with their
-exact published hyper-parameters and smoke configs. The vlm and encdec
-ids of the JAX registry resolve to ``NotImplementedError``: their
-families are not ported yet.
+Every architecture of the JAX registry is copied here with its exact
+published hyper-parameters and smoke config.
 """
 from __future__ import annotations
 
@@ -22,23 +20,16 @@ _ARCH_MODULES: Dict[str, str] = {
     "mamba2-780m": "mamba2_780m",
     "grok-1-314b": "grok1_314b",
     "arctic-480b": "arctic_480b",
-}
-# ids of the JAX registry whose family the port does not run yet
-_NOT_PORTED: Dict[str, str] = {
-    "seamless-m4t-large-v2": "encdec",
-    "llama-3.2-vision-11b": "vlm",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "llama-3.2-vision-11b": "llama32_vision_11b",
 }
 
 
 def list_archs() -> List[str]:
-    return list(_ARCH_MODULES) + list(_NOT_PORTED)
+    return list(_ARCH_MODULES)
 
 
 def _module(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is family {_NOT_PORTED[name]!r}, not ported yet; "
-            f"the PyTorch port runs {list(_ARCH_MODULES)}")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; have {list_archs()}")
     return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")

@@ -1,19 +1,26 @@
 """Batched serving: prefill, then a greedy or temperature decode loop
-(counterpart of ``repro/launch/serve.py``; the dense, moe, ssm and hybrid
-families).
+(counterpart of ``repro/launch/serve.py``; every family).
 
     python -m repro_torch.launch.serve --arch qwen1.5-0.5b --full \\
         --batch 8 --prompt-len 512 --gen 64
     python -m repro_torch.launch.serve --device cpu --batch 4 \\
         --prompt-len 16 --gen 16          # smoke config on the CPU
+    python -m repro_torch.launch.serve --arch llama-3.2-vision-11b \\
+        --device cpu --batch 2 --prompt-len 16 --gen 8
 
 The prompt's prefill takes the flash-attention kernel on the card for
-every causal attention (``models/attention.py:prefill_attn``; an SSM
-prefill has none); each decode step is plain PyTorch, as the reference's
-is XLA. Temperature sampling is
+every self-attention (``models/attention.py:prefill_attn``, and the
+encoder's without the causal mask; an SSM prefill has none;
+cross-attention is plain); each decode step is plain PyTorch, as the
+reference's is XLA. Temperature sampling is
 ``argmax(logits / T + gumbel)``, the form of ``jax.random.categorical``
 (``sample_next``), with the Gumbel noise from the server's own
-``torch.Generator`` (other draws than JAX's). The CLI prints one JSON
+``torch.Generator`` (other draws than JAX's). The vlm and encdec
+frontends are stubs, as in the reference (``_aux_inputs``):
+``image_embeds`` (B, image_tokens, d) or ``frames`` (B, encoder_len(P),
+frontend_dim), standard normal bfloat16 draws from the same generator
+before any noise (``stub_inputs``), unless the caller gives them
+(``generate(aux=...)``). The CLI prints one JSON
 object: ``wall_s`` and ``tokens_per_s`` of a second ``generate`` (the
 first warms up), and row 0's tokens.
 """
@@ -27,9 +34,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..configs.base import ModelConfig, require_ported
+from ..configs.base import ModelConfig
 from ..configs.registry import get_config, get_smoke_config, list_archs
-from ..models.model import decode_step, init_cache, prefill
+from ..models.model import (decode_step, encoder_len, image_tokens,
+                            init_cache, prefill)
 from ..models.transformer import init_lm
 
 
@@ -60,7 +68,6 @@ class Server:
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
                  params: Optional[Dict] = None):
-        require_ported(cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Server: device 'cuda' requested but no CUDA "
@@ -76,20 +83,44 @@ class Server:
         state's)."""
         self.params = params
 
+    def stub_inputs(self, B: int, prompt_len: int,
+                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """The frontend stubs of a batch of B prompts of ``prompt_len``
+        (none for a family without a memory), on the server's device."""
+        cfg, extra = self.cfg, {}
+
+        def draw(shape):
+            return torch.randn(shape, generator=generator,
+                               device=self.device, dtype=torch.bfloat16)
+        if cfg.is_encdec:
+            extra["frames"] = draw((B, encoder_len(cfg, prompt_len),
+                                    cfg.frontend_dim or cfg.d_model))
+        if cfg.family == "vlm":
+            extra["image_embeds"] = draw((B, image_tokens(cfg),
+                                          cfg.d_model))
+        return extra
+
     @torch.no_grad()
     def generate(self, prompts: np.ndarray, gen_len: int,
-                 temperature: float = 0.0, seed: int = 0) -> np.ndarray:
+                 temperature: float = 0.0, seed: int = 0,
+                 aux: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> np.ndarray:
         """prompts (B, P) int32 -> (B, P + gen_len): the prompt and its
         continuation. Greedy at temperature 0; the Gumbel noise of
-        temperature sampling comes from a generator seeded with ``seed``.
-        Tokens stay on the device until the end (one copy out)."""
+        temperature sampling (and the frontend stubs, unless ``aux`` gives
+        them) come from a generator seeded with ``seed``. Tokens stay on
+        the device until the end (one copy out)."""
         B, P = prompts.shape
         dev = self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
         cache = init_cache(self.cfg, B, P + gen_len, device=dev)
         tokens = torch.as_tensor(np.asarray(prompts, np.int32), device=dev)
-        logits, cache = prefill(self.cfg, self.params, {"tokens": tokens},
-                                cache)
+        if aux is None:
+            aux = self.stub_inputs(B, P, gen)
+        batch = {"tokens": tokens,
+                 **{k: torch.as_tensor(v, device=dev)
+                    for k, v in aux.items()}}
+        logits, cache = prefill(self.cfg, self.params, batch, cache)
         out = [tokens]
         pos = torch.full((1,), P, dtype=torch.long, device=dev)
         for i in range(gen_len):

@@ -44,9 +44,22 @@ replicated int8 score store (``--quant-scores``), each with its fused
 kernel or its scatter form; checkpoints and a bit-exact resume, mid-epoch
 and with a pipelined held batch included (``--ckpt-dir``); int8 gradient
 compression with error feedback on one device (``--grad-compression``).
-The dense, MoE, SSM and hybrid families run (``--arch``); vlm and encdec
-raise "not ported yet", as does every other flag that asks for anything
-but its default (``--shard-scores``, ``--quant-wire``).
+The dense, MoE, SSM and hybrid families run (``--arch``). vlm and encdec
+are refused at construction with the reference's reasons ("vlm needs
+image embeddings", "encdec needs frame embeddings"): no source makes
+their frontend stubs, and the reference's trainer runs neither (its
+``lm_hidden`` asserts them); they train through ``ESEngine`` on batches
+that carry ``image_embeds`` or ``frames``. Every other flag that asks for
+anything but its default (``--shard-scores``, ``--quant-wire``) raises
+"not ported yet".
+
+Preemption and stragglers (``distributed/fault_tolerance.py``), as the
+reference's trainer: SIGTERM or SIGINT only sets a flag, and after the
+step in flight ``_record`` prints ``[preempt] checkpoint-and-exit``,
+writes a final checkpoint (with ``--ckpt-dir``) and stops, so a run given
+the same directory resumes bitwise; each step's time feeds a
+``StragglerMonitor``, whose flagged steps the summary counts
+(``straggler_reports``).
 ``--device`` (default ``cuda``) and ``--seed`` are the port's own: without
 a GPU the default device raises, and the CPU runs only when asked for.
 
@@ -108,7 +121,7 @@ import numpy as np
 import torch
 
 from ..checkpoint import Checkpointer
-from ..configs.base import ModelConfig, require_ported
+from ..configs.base import ModelConfig
 from ..configs.registry import get_config, get_smoke_config, list_archs
 from ..core.annealing import AnnealSchedule
 from ..core.engine import (CadenceConfig, ESConfig, ESEngine,
@@ -118,7 +131,8 @@ from ..core.scores import make_store
 from ..data.pipeline import (DataPipeline, Prefetcher, SyncStream,
                              get_source, make_placer)
 from ..data.pipeline.sources import SOURCES
-from ..models.transformer import lm_per_sample_loss
+from ..distributed.fault_tolerance import PreemptionHandler, StragglerMonitor
+from ..models.transformer import MEMORY_NEEDED, lm_per_sample_loss
 from ..optim.adamw import OptConfig
 from ..optim.schedule import get_schedule
 
@@ -237,7 +251,14 @@ class Trainer:
         torch.backends.cudnn.allow_tf32 = False
         self.model_cfg = model_cfg or (
             get_smoke_config(tc.arch) if tc.smoke else get_config(tc.arch))
-        require_ported(self.model_cfg)
+        if self.model_cfg.family in MEMORY_NEEDED:
+            raise ValueError(
+                f"{MEMORY_NEEDED[self.model_cfg.family]}: no source of the "
+                f"trainer makes them (the reference's trainer runs no "
+                f"{self.model_cfg.family!r} model); train it through "
+                f"ESEngine on batches that carry them")
+        self.preempt = PreemptionHandler().install()
+        self.straggler = StragglerMonitor()
         if source is None:
             source = get_source(tc.source, path=tc.data_path,
                                 n_samples=tc.n_samples, seq_len=tc.seq_len,
@@ -490,7 +511,9 @@ class Trainer:
     def _record(self, epoch: int, m: Dict[str, Any], dur: float,
                 data_wait: float) -> bool:
         """Book one trained step (``dur`` and ``data_wait`` in seconds);
-        True when training should stop."""
+        True when training should stop: at the step cap, or on a
+        preemption signal, after a final checkpoint."""
+        self.straggler.record(self.global_step, dur)
         self.global_step += 1
         self.bp_samples_total += float(m["bp_samples"])
         scored = float(m.get("scored", 1.0))
@@ -505,6 +528,10 @@ class Trainer:
             "step_time": dur, "data_wait": data_wait})
         if self.ckpt and self.global_step % self.tc.ckpt_every_steps == 0:
             self._checkpoint(epoch)
+        if self.preempt.preemption_requested:
+            print("[preempt] checkpoint-and-exit")
+            self._checkpoint(epoch, final=True)
+            return True
         return bool(self.tc.max_steps
                     and self.global_step >= self.tc.max_steps)
 
@@ -583,6 +610,9 @@ class Trainer:
             "bp_samples_total": self.bp_samples_total,
             "scoring_steps_total": self.scoring_steps_total,
             "wall_time": time.time() - t_start,
+            "straggler_reports": len(self.straggler.reports),
+            # the port has no sharded store yet
+            "score_store_sharded": False,
             "device": str(self.device),
             "prune_events": self.prune_events,
             "epoch_log": self.epoch_log,

@@ -1,6 +1,6 @@
-"""Self-attention of the dense decoder (counterpart of
-``repro/models/attention.py:51-181``, ``mha`` and ``segment_causal_mask``,
-and :195-267, the KV-cache paths of serving).
+"""Self- and cross-attention (counterpart of
+``repro/models/attention.py:51-188``, ``mha``, ``segment_causal_mask`` and
+``cross_attn``, and :195-267, the KV-cache paths of serving).
 
 Two paths compute the same function:
 
@@ -14,7 +14,11 @@ Two paths compute the same function:
   chunk's float32 scores formed at a time;
 * the no-grad scoring path (``scoring=True``) through the flash-attention
   kernel (``kernels/flash_attn``), which keeps the (S, S) scores out of
-  device memory.
+  device memory; causal, or not (``causal=False``: the encoder).
+
+``cross_attn`` (queries from x, keys and values from a memory of another
+length: image embeddings, or the encoder's output) is plain PyTorch on
+both paths, as the reference's is XLA.
 
 Packed rows (``segment_ids`` with per-row (B, S) ``positions``) take the
 training path with a segment-isolated causal mask; the flash kernel has
@@ -59,20 +63,23 @@ def init_attn(d: int, n_heads: int, n_kv: int, head_dim: int, qkv_bias: bool,
     return params
 
 
-def _project_qkv(params: Params, x: torch.Tensor, n_heads: int, n_kv: int,
-                 head_dim: int):
+def _project_qkv(params: Params, x: torch.Tensor, xkv: torch.Tensor,
+                 n_heads: int, n_kv: int, head_dim: int):
+    """Queries from x (B, Sq, d), keys and values from xkv (B, Sk, d):
+    x itself for self-attention, the memory for cross-attention."""
     dt = x.dtype
     q = x @ params["wq"].to(dt)
-    k = x @ params["wk"].to(dt)
-    v = x @ params["wv"].to(dt)
+    k = xkv @ params["wk"].to(dt)
+    v = xkv @ params["wv"].to(dt)
     if "bq" in params:
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
-    B, S, _ = x.shape
-    return (q.reshape(B, S, n_heads, head_dim),
-            k.reshape(B, S, n_kv, head_dim),
-            v.reshape(B, S, n_kv, head_dim))
+    B, Sq, _ = x.shape
+    Sk = xkv.shape[1]
+    return (q.reshape(B, Sq, n_heads, head_dim),
+            k.reshape(B, Sk, n_kv, head_dim),
+            v.reshape(B, Sk, n_kv, head_dim))
 
 
 def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
@@ -124,7 +131,8 @@ def mha(params: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
         causal: bool = True, scoring: bool = False,
         positions: Optional[torch.Tensor] = None,
         segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal self-attention over x (B, S, d) -> (B, S, d).
+    """Self-attention over x (B, S, d) -> (B, S, d), causal unless
+    ``causal=False`` (the encoder's).
 
     ``segment_ids`` (B, S) switches on packed-row masking (causal within
     each segment, nothing across segments or padding); ``positions`` must
@@ -142,7 +150,7 @@ def mha(params: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
             raise NotImplementedError("mha: the flash-attention kernel has "
                                       "no segment masking; packed rows take "
                                       "the training path")
-    q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim)
+    q, k, v = _project_qkv(params, x, x, n_heads, n_kv, head_dim)
     cos, sin = rope_angles(positions, head_dim, rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -161,6 +169,19 @@ def mha(params: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
             out = _grouped_attn(qg, k, v, _mask(positions, segment_ids,
                                                 causal, slice(None)))
     out = out.reshape(B, S, n_heads * head_dim)
+    return out @ params["wo"].to(x.dtype)
+
+
+def cross_attn(params: Params, x: torch.Tensor, memory: torch.Tensor, *,
+               n_heads: int, n_kv: int, head_dim: int) -> torch.Tensor:
+    """Cross-attention: queries from x (B, Sq, d), keys and values from
+    ``memory`` (B, Sk, d), GQA, no RoPE and no mask -> (B, Sq, d). Plain
+    PyTorch on every device, as the reference's is XLA (its flash kernel
+    takes one sequence length for q and kv)."""
+    B, Sq, _ = x.shape
+    q, k, v = _project_qkv(params, x, memory, n_heads, n_kv, head_dim)
+    qg = q.reshape(B, Sq, n_kv, n_heads // n_kv, head_dim)
+    out = _grouped_attn(qg, k, v, None).reshape(B, Sq, n_heads * head_dim)
     return out @ params["wo"].to(x.dtype)
 
 
@@ -197,7 +218,7 @@ def prefill_attn(params: Params, x: torch.Tensor,
     are written to ``cache[:, :S]``. -> (y (B, S, d), cache)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
-    q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim)
+    q, k, v = _project_qkv(params, x, x, n_heads, n_kv, head_dim)
     cos, sin = rope_angles(positions, head_dim, rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -220,7 +241,7 @@ def decode_attn(params: Params, x: torch.Tensor,
     tensor on x's device). -> (y (B, 1, d), cache)."""
     B = x.shape[0]
     S_max = cache["k"].shape[1]
-    q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim)
+    q, k, v = _project_qkv(params, x, x, n_heads, n_kv, head_dim)
     cos, sin = rope_angles(pos, head_dim, rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)

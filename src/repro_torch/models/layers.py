@@ -144,8 +144,9 @@ def mlp_fwd(kind: str, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def winit(shape: Tuple[int, ...], device, gen: torch.Generator,
           scale: float = 0.02) -> torch.Tensor:
-    """N(0, scale^2) float32 weights from the caller's generator."""
-    return scale * torch.randn(shape, device=device, generator=gen)
+    """N(0, scale^2) float32 weights from the caller's generator (scaled
+    in place: no second buffer of the leaf's size)."""
+    return torch.randn(shape, device=device, generator=gen).mul_(scale)
 
 
 def init_embedding(vocab: int, d: int, tie: bool, device,

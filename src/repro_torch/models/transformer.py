@@ -1,8 +1,7 @@
-"""Decoder LMs of the dense, MoE, SSM and hybrid families: init, hidden
-states, per-sample and per-segment loss (counterpart of
-``repro/models/transformer.py``: the blocks :80-166, ``init_lm`` :204,
-``lm_hidden`` :270, ``lm_per_sample_loss`` :378, ``lm_per_segment_loss``
-:397).
+"""The LMs of all six families: init, hidden states, per-sample and
+per-segment loss (counterpart of ``repro/models/transformer.py``: the
+blocks :80-166, ``init_lm`` :204, ``lm_hidden`` :270, ``encode`` :355,
+``lm_per_sample_loss`` :378, ``lm_per_segment_loss`` :397).
 
 Parameters are a dict mirroring the JAX pytree, with the layer stack
 stacked along a leading L axis (``layers/attn/wq`` is (L, d, H*hd)):
@@ -16,6 +15,14 @@ stacked along a leading L axis (``layers/attn/wq`` is (L, d, H*hd)):
     ssm:   layers/ln1/scale, layers/mamba/* (L, ...)
     hybrid: layers/ln1, layers/mamba/* led by (n_sites, every), and one
            dense block ``shared`` (no stack) applied at each site's end
+    vlm:   dense layers/* led by (n_sites, every); cross/ln1, ln2, attn,
+           mlp, gate_attn, gate_mlp (n_sites, 1): a gated cross-attention
+           block to the image embeddings at each site's end
+    encdec: dense layers/* (L,) and cross/attn, cross/ln (L,): each
+           decoder layer attends to itself, then (after cross/ln) to the
+           encoder's output, then runs its MLP; encoder/* (a dense stack of
+           num_encoder_layers), frontend_proj (frontend_dim, d) and
+           enc_final_norm
 
 Two forwards compute the same per-sample loss:
 
@@ -27,8 +34,15 @@ Two forwards compute the same per-sample loss:
 * ``scoring=True``: the no-grad ES scoring forward, with every causal
   self-attention through the flash-attention kernel and the loss through
   the fused cross-entropy kernel, which reads the (V, d) embedding table
-  without a transpose. The MoE dispatch and the Mamba2 blocks are plain
-  PyTorch on both paths, as they are XLA in the reference.
+  without a transpose; the encoder's self-attention takes the same kernel
+  without the causal mask. The MoE dispatch, the Mamba2 blocks and
+  cross-attention are plain PyTorch on both paths, as they are XLA in the
+  reference.
+
+vlm and encdec read their memory from the batch (``image_embeds`` (B,
+n_img, d), ``frames`` (B, T, frontend_dim)), as the reference does. The
+vlm's gates start at 0, and tanh(0) = 0: a fresh vlm does not reach its
+cross-attention until they move.
 
 Packed rows (``positions`` and ``segment_ids``) take the training path
 with segment-isolated attention (dense and moe only: the SSM recurrences
@@ -46,12 +60,12 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..configs.base import ModelConfig, require_ported
+from ..configs.base import ModelConfig
 from ..kernels.xent.ops import per_sample_xent_fused
-from .attention import init_attn, mha
+from .attention import cross_attn, init_attn, mha
 from .layers import (Params, apply_norm, embed_tokens, init_embedding,
                      init_mlp, init_norm, mlp_fwd, unembed_matrix,
-                     unembed_table)
+                     unembed_table, winit)
 from .losses import per_sample_xent, per_segment_xent
 from .moe import init_moe, moe_fwd
 from .ssm import init_mamba2, mamba2_fwd
@@ -96,9 +110,29 @@ def _init_mamba_block(cfg: ModelConfig, lead: Tuple[int, ...], device,
     return p
 
 
+def _init_cross_block(cfg: ModelConfig, lead: Tuple[int, ...], device,
+                      gen: torch.Generator) -> Dict:
+    """Gated cross-attention block (llama-3.2-vision): the gates start at
+    zero."""
+    d = cfg.d_model
+    p: Dict = {}
+    ln1 = init_norm(cfg.norm_kind, d, lead, device)
+    if ln1 is not None:
+        p["ln1"] = ln1
+        p["ln2"] = init_norm(cfg.norm_kind, d, lead, device)
+    p["attn"] = init_attn(d, cfg.num_heads, cfg.num_kv_heads,
+                          cfg.resolved_head_dim(), False, lead, device, gen)
+    p["mlp"] = init_mlp(cfg.mlp_kind, d, cfg.d_ff, lead, device, gen)
+    p["gate_attn"] = torch.zeros(lead + (1,), device=device)
+    p["gate_mlp"] = torch.zeros(lead + (1,), device=device)
+    return p
+
+
 def n_sites(cfg: ModelConfig) -> Tuple[int, int]:
-    """(n_sites, layers a site) of the hybrid's grouped stack."""
-    every = cfg.hybrid_attn_every
+    """(n_sites, layers a site) of the hybrid's or the vlm's grouped
+    stack."""
+    every = cfg.hybrid_attn_every if cfg.family == "hybrid" \
+        else cfg.cross_attn_every
     assert every > 0 and cfg.num_layers % every == 0, (cfg.num_layers, every)
     return cfg.num_layers // every, every
 
@@ -115,7 +149,6 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
     ``A_log`` = log(1..nh), all float32 (``param_dtype`` applied last).
     Drawn from ``gen`` on ``device``; the draws differ from JAX's (tests
     carry JAX parameters across with ``bridge``)."""
-    require_ported(cfg)
     d = cfg.d_model
     params: Dict = {"embed": init_embedding(cfg.vocab_size, d,
                                             cfg.tie_embeddings, device, gen)}
@@ -128,10 +161,32 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
     elif cfg.family == "ssm":
         params["layers"] = _init_mamba_block(cfg, (cfg.num_layers,), device,
                                              gen)
-    else:  # hybrid
+    elif cfg.family == "hybrid":
         params["layers"] = _init_mamba_block(cfg, n_sites(cfg), device, gen)
         params["shared"] = _init_dense_block(shared_cfg(cfg), (), device,
                                              gen)
+    elif cfg.family == "vlm":
+        ns, k = n_sites(cfg)
+        params["layers"] = _init_dense_block(cfg, (ns, k), device, gen)
+        params["cross"] = _init_cross_block(cfg, (ns,), device, gen)
+    elif cfg.family == "encdec":
+        L = (cfg.num_layers,)
+        params["layers"] = _init_dense_block(cfg, L, device, gen)
+        params["cross"] = {"attn": init_attn(
+            d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim(),
+            False, L, device, gen)}
+        lnc = init_norm(cfg.norm_kind, d, L, device)
+        if lnc is not None:
+            params["cross"]["ln"] = lnc
+        params["encoder"] = _init_dense_block(
+            cfg, (cfg.num_encoder_layers,), device, gen)
+        params["frontend_proj"] = winit((cfg.frontend_dim or d, d), device,
+                                        gen)
+        efn = init_norm(cfg.norm_kind, d, (), device)
+        if efn is not None:
+            params["enc_final_norm"] = efn
+    else:
+        raise ValueError(cfg.family)
     pdt = dtype_of(cfg.param_dtype)
     if pdt != torch.float32:
         params = tree_map(lambda p: p.to(pdt), params)
@@ -173,27 +228,78 @@ def ffn(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
     return mlp_fwd(cfg.mlp_kind, p["mlp"], h)
 
 
+def _self_attn(cfg: ModelConfig, p: Params, h: torch.Tensor, scoring: bool,
+               causal: bool = True, positions: Optional[torch.Tensor] = None,
+               segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return mha(p, h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
+               head_dim=cfg.resolved_head_dim(), rope_theta=cfg.rope_theta,
+               chunk_q=cfg.attn_chunk_q, causal=causal, scoring=scoring,
+               positions=positions, segment_ids=segment_ids)
+
+
+def _cross(cfg: ModelConfig, p: Params, h: torch.Tensor,
+           memory: torch.Tensor) -> torch.Tensor:
+    return cross_attn(p, h, memory, n_heads=cfg.num_heads,
+                      n_kv=cfg.num_kv_heads,
+                      head_dim=cfg.resolved_head_dim())
+
+
 def _dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                 scoring: bool, positions: Optional[torch.Tensor],
-                 segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
+                 scoring: bool, positions: Optional[torch.Tensor] = None,
+                 segment_ids: Optional[torch.Tensor] = None,
+                 causal: bool = True) -> torch.Tensor:
+    """Attention + feed-forward; ``causal=False`` is the encoder's."""
     h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
-    x = x + mha(p["attn"], h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
-                head_dim=cfg.resolved_head_dim(), rope_theta=cfg.rope_theta,
-                chunk_q=cfg.attn_chunk_q, scoring=scoring,
-                positions=positions, segment_ids=segment_ids)
+    x = x + _self_attn(cfg, p["attn"], h, scoring, causal, positions,
+                       segment_ids)
     h = apply_norm(cfg.norm_kind, x, p.get("ln2"))
     return x + ffn(cfg, p, h)
 
 
-def _mamba_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                 scoring: bool, positions: Optional[torch.Tensor],
-                 segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
-    """A Mamba2 block (no attention: ``scoring`` and the packing
-    arguments are the dense block's signature, unused)."""
+def _mamba_block(cfg: ModelConfig, p: Params,
+                 x: torch.Tensor) -> torch.Tensor:
     h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
     return x + mamba2_fwd(p["mamba"], h, state=cfg.ssm_state,
                           head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
                           chunk=cfg.ssm_chunk)
+
+
+def gated_cross_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                      attend) -> torch.Tensor:
+    """The vlm's gated cross-attention block with ``attend(attn params,
+    h) -> y`` as its cross-attention: tanh-gated cross-attention, then a
+    tanh-gated MLP."""
+    h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
+    x = x + torch.tanh(p["gate_attn"].to(x.dtype)) * attend(p["attn"], h)
+    h = apply_norm(cfg.norm_kind, x, p.get("ln2"))
+    return x + torch.tanh(p["gate_mlp"].to(x.dtype)) * mlp_fwd(
+        cfg.mlp_kind, p["mlp"], h)
+
+
+def decoder_layer(cfg: ModelConfig, p: Params, cp: Params, x: torch.Tensor,
+                  self_attend, cross_attend) -> torch.Tensor:
+    """An encdec decoder layer with ``self_attend(attn params, h)`` and
+    ``cross_attend(attn params, h)``: self-attention, cross-attention to
+    the encoder's output after ``cp["ln"]``, then the MLP."""
+    h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
+    x = x + self_attend(p["attn"], h)
+    h = apply_norm(cfg.norm_kind, x, cp.get("ln"))
+    x = x + cross_attend(cp["attn"], h)
+    h = apply_norm(cfg.norm_kind, x, p.get("ln2"))
+    return x + mlp_fwd(cfg.mlp_kind, p["mlp"], h)
+
+
+def _cross_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                 memory: torch.Tensor) -> torch.Tensor:
+    return gated_cross_block(cfg, p, x,
+                             lambda pa, h: _cross(cfg, pa, h, memory))
+
+
+def _decoder_block(cfg: ModelConfig, p: Params, cp: Params, x: torch.Tensor,
+                   enc: torch.Tensor, scoring: bool) -> torch.Tensor:
+    return decoder_layer(cfg, p, cp, x,
+                         lambda pa, h: _self_attn(cfg, pa, h, scoring),
+                         lambda pa, h: _cross(cfg, pa, h, enc))
 
 
 # "selective" keeps the outputs of the products without a batch dimension,
@@ -227,38 +333,96 @@ def _remat(fn, policy: str):
     raise ValueError(policy)
 
 
+def _runner(cfg: ModelConfig, scoring: bool):
+    """-> run(block, *args): the block under the config's remat policy
+    when gradients are on and ``scoring`` is off (else there is nothing
+    to save)."""
+    remat = not scoring and torch.is_grad_enabled()
+
+    def run(block, *args):
+        return (_remat(block, cfg.remat_policy) if remat else block)(*args)
+    return run
+
+
 def lm_hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
-              scoring: bool = False, positions: Optional[torch.Tensor] = None,
+              scoring: bool = False, memory: Optional[torch.Tensor] = None,
+              positions: Optional[torch.Tensor] = None,
               segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens (B, S) -> final-normed hidden states (B, S, d), compute dtype.
+    ``memory`` is the vlm's image embeddings (B, n_img, d) or the encdec's
+    frame embeddings (B, T, frontend_dim), which those families need.
     ``segment_ids``/``positions`` (B, S) isolate the documents of packed
     rows (dense and moe only, as in the reference)."""
-    require_ported(cfg)
     if segment_ids is not None and cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"sequence packing is attention-mask based; family "
             f"{cfg.family!r} has no segment isolation")
-    x = embed_tokens(params["embed"], tokens, dtype_of(cfg.compute_dtype))
-    remat = not scoring and torch.is_grad_enabled()   # else nothing to save
-
-    def run(block, bcfg, p, h):
-        fn = _remat(block, cfg.remat_policy) if remat else block
-        return fn(bcfg, p, h, scoring, positions, segment_ids)
+    dt = dtype_of(cfg.compute_dtype)
+    if cfg.family in ("vlm", "encdec"):
+        if memory is None:
+            raise ValueError(MEMORY_NEEDED[cfg.family])
+        memory = memory.to(dt)
+    x = embed_tokens(params["embed"], tokens, dt)
+    run = _runner(cfg, scoring)
 
     if cfg.family in ("dense", "moe"):
         for p in _unstack(params["layers"], cfg.num_layers):
-            x = run(_dense_block, cfg, p, x)
+            x = run(_dense_block, cfg, p, x, scoring, positions, segment_ids)
     elif cfg.family == "ssm":
         for p in _unstack(params["layers"], cfg.num_layers):
             x = run(_mamba_block, cfg, p, x)
-    else:  # hybrid: each site's Mamba2 layers, then the shared block
+    elif cfg.family == "hybrid":
+        # each site's Mamba2 layers, then the shared block
         ns, k = n_sites(cfg)
         scfg = shared_cfg(cfg)
         for site in _unstack(params["layers"], ns):
             for p in _unstack(site, k):
                 x = run(_mamba_block, cfg, p, x)
-            x = run(_dense_block, scfg, params["shared"], x)
+            x = run(_dense_block, scfg, params["shared"], x, scoring)
+    elif cfg.family == "vlm":
+        # each site's self-attention layers, then its cross block
+        ns, k = n_sites(cfg)
+        for site, cp in zip(_unstack(params["layers"], ns),
+                            _unstack(params["cross"], ns)):
+            for p in _unstack(site, k):
+                x = run(_dense_block, cfg, p, x, scoring)
+            x = run(_cross_block, cfg, cp, x, memory)
+    elif cfg.family == "encdec":
+        enc = encode(cfg, params, memory, scoring=scoring)
+        L = cfg.num_layers
+        for p, cp in zip(_unstack(params["layers"], L),
+                         _unstack(params["cross"], L)):
+            x = run(_decoder_block, cfg, p, cp, x, enc, scoring)
+    else:
+        raise ValueError(cfg.family)
     return apply_norm(cfg.norm_kind, x, params.get("final_norm"))
+
+
+# the reference's reasons (its lm_hidden asserts them)
+MEMORY_NEEDED = {"vlm": "vlm needs image embeddings",
+                 "encdec": "encdec needs frame embeddings"}
+
+
+def encode(cfg: ModelConfig, params: Dict, frames: torch.Tensor, *,
+           scoring: bool = False) -> torch.Tensor:
+    """The encoder over frame embeddings (B, T, frontend_dim) -> (B, T, d),
+    compute dtype: ``frontend_proj``, then num_encoder_layers dense blocks
+    with bidirectional self-attention (RoPE, no mask; the flash kernel
+    without the causal mask when ``scoring``), then ``enc_final_norm``."""
+    dt = dtype_of(cfg.compute_dtype)
+    x = frames.to(dt) @ params["frontend_proj"].to(dt)
+    run = _runner(cfg, scoring)
+    for p in _unstack(params["encoder"], cfg.num_encoder_layers):
+        x = run(_dense_block, cfg, p, x, scoring, None, None, False)
+    return apply_norm(cfg.norm_kind, x, params.get("enc_final_norm"))
+
+
+def memory_of(cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+              ) -> Optional[torch.Tensor]:
+    """The batch's memory: ``frames`` for encdec, else ``image_embeds``
+    (None for the families without one)."""
+    return batch.get("frames") if cfg.is_encdec \
+        else batch.get("image_embeds")
 
 
 def lm_per_sample_loss(cfg: ModelConfig, params: Dict,
@@ -273,6 +437,7 @@ def lm_per_sample_loss(cfg: ModelConfig, params: Dict,
     cross-entropy (``ESConfig.seq_chunk``); the kernel ignores it.
     """
     h = lm_hidden(cfg, params, batch["tokens"], scoring=scoring,
+                  memory=memory_of(cfg, batch),
                   positions=batch.get("positions"),
                   segment_ids=batch.get("segment_ids"))
     if scoring:

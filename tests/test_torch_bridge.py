@@ -97,9 +97,12 @@ def test_port_imports_neither_jax_nor_repro():
         "       'repro_torch.configs.mamba2_780m',\n"
         "       'repro_torch.configs.zamba2_2p7b',\n"
         "       'repro_torch.configs.grok1_314b',\n"
-        "       'repro_torch.configs.arctic_480b'}\n"
+        "       'repro_torch.configs.arctic_480b',\n"
+        "       'repro_torch.configs.llama32_vision_11b',\n"
+        "       'repro_torch.configs.seamless_m4t_large_v2',\n"
+        "       'repro_torch.distributed.fault_tolerance'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
-        "assert len(names) >= 62, names\n"
+        "assert len(names) >= 65, names\n"
         "print('OK', len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

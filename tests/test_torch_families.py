@@ -353,9 +353,9 @@ def test_packing_raises_for_ssm_and_hybrid(arch):
 
 @pytest.mark.parametrize("arch", jax_list_archs())
 def test_n_params_match_jax(arch):
-    """All ten archs: the port's count of the JAX config (vlm and encdec
-    too, whose ids the port's registry refuses) equals the reference's,
-    and the ported archs' own configs are the same dataclass values."""
+    """All ten archs: the port's count of the JAX config equals the
+    reference's, and the port's own configs (vlm and encdec included) are
+    the same dataclass values."""
     lo, hi = {"zamba2-2.7b": (2.0, 3.0), "mamba2-780m": (0.7, 0.9),
               "llama3-8b": (7.5, 8.5), "olmo-1b": (1.0, 1.4),
               "qwen1.5-0.5b": (0.4, 0.55), "qwen2-72b": (70, 75),
@@ -369,15 +369,9 @@ def test_n_params_match_jax(arch):
     for prop in ("is_encdec", "is_attention_free", "supports_long_context",
                  "has_decoder"):
         assert getattr(tcfg, prop) == getattr(jcfg, prop), prop
-    if tcfg.family in ("vlm", "encdec"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(arch)
-    else:
-        assert dataclasses.asdict(get_config(arch)) == \
-            dataclasses.asdict(jcfg)
-        assert dataclasses.asdict(
-            ttransformer_smoke(arch)) == dataclasses.asdict(
-                get_smoke_config(arch))
+    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(ttransformer_smoke(arch)) == \
+        dataclasses.asdict(get_smoke_config(arch))
 
 
 def ttransformer_smoke(arch):
@@ -413,9 +407,30 @@ def test_params_from_jax_round_trip_of_the_family_trees(arch):
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
                                   "seamless-m4t-large-v2"])
 def test_params_from_jax_rejects_vlm_and_encdec(arch):
+    """Since the vlm and encdec families are ported, their trees convert
+    leaf for leaf (the vlm's (n_sites, every) stack and its gated cross
+    blocks; the encdec's cross-attention, encoder, frontend_proj and
+    enc_final_norm), the port's own init draws the same tree, and a
+    cross or encoder entry of no family still raises."""
     cfg = get_smoke_config(arch)
     shapes = jax.eval_shape(lambda k: jinit_lm(cfg, k)[0],
                             jax.random.PRNGKey(0))
-    host = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes)
-    with pytest.raises(ValueError, match="not ported"):
-        params_from_jax(host)
+    rng = np.random.default_rng(0)
+    host = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(
+        a.dtype), shapes)
+    want, got = _flat(host), _flat_torch(params_from_jax(host))
+    assert set(want) == set(got)
+    for k, v in got.items():
+        assert v.dtype == torch.float32, k
+        np.testing.assert_array_equal(v.numpy(), want[k], err_msg=k)
+    own = _flat_torch(ttransformer.init_lm(
+        ModelConfig(**dataclasses.asdict(cfg)),
+        torch.Generator().manual_seed(0), "cpu"))
+    assert {k: tuple(v.shape) for k, v in own.items()} == \
+        {k: v.shape for k, v in want.items()}
+    if cfg.is_encdec:
+        bad = {k: v for k, v in host.items() if k != "frontend_proj"}
+    else:
+        bad = {**host, "cross": {**host["cross"], "shared": host["layers"]}}
+    with pytest.raises(ValueError):
+        params_from_jax(bad)

@@ -63,8 +63,12 @@ def test_lm_per_sample_loss_matches_jax(arch, dtype):
 
 
 def test_non_dense_family_raises():
-    # the moe, ssm and hybrid families are ported (test_torch_families.py)
-    for arch in ("llama-3.2-vision-11b", "seamless-m4t-large-v2"):
+    # every family is ported (test_torch_families.py,
+    # test_torch_crossattn.py); vlm and encdec raise the reference's reason
+    # on a batch without their memory
+    for arch, why in (("llama-3.2-vision-11b", "vlm needs image embeddings"),
+                      ("seamless-m4t-large-v2",
+                       "encdec needs frame embeddings")):
         cfg = ModelConfig(**dataclasses.asdict(get_smoke_config(arch)))
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(ValueError, match=why):
             torch_lm_per_sample_loss(cfg, {}, {"tokens": torch.zeros(1, 2)})

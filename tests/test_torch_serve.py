@@ -171,10 +171,13 @@ def test_serve_cli_on_cpu_and_default_device(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tserve.main(["--batch", "1", "--gen", "1"])
-    # vlm and encdec are not ported (moe, ssm, hybrid: test_torch_families)
+    # vlm and encdec run too, on the server's own stubs (their parity with
+    # JAX: test_torch_crossattn.py; moe, ssm, hybrid: test_torch_families)
     for arch in ("llama-3.2-vision-11b", "seamless-m4t-large-v2"):
+        report = tserve.main(["--arch", arch, "--device", "cpu", "--batch",
+                              "2", "--prompt-len", "5", "--gen", "3"])
+        capsys.readouterr()
+        assert len(report["sample_output"]) == 8
         other = ModelConfig(**dataclasses.asdict(get_smoke_config(arch)))
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tserve.Server(other, device="cpu")
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tmodel.init_cache(other, 1, 4, device="cpu")
+        cache = tmodel.init_cache(other, 1, 4, device="cpu")
+        assert set(cache) == {"kv", "cross_kv"}
