@@ -68,6 +68,14 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    for the pruned paths the prune events the reference's rules give, the
    kept-set's size, each epoch's step count as the sampler gives it and
    InfoBatch's weighted mean against the unweighted one on one batch;
+   then the store in four row blocks on the card (phase 6e):
+   ``train_sharded`` (S1 with ``--shard-scores``) and
+   ``train_sharded_quant`` (``train_quant`` with ``--shard-scores
+   --quant-wire``), 4 steps each, the engine's store calls recorded and
+   replayed after the path into a replicated store (bitwise; the int8
+   wire's gathers within one grid step and its selections within one
+   key-grid step), four launches of each store kernel a step, and one
+   step's store work timed per layout;
    then ``train_tokens`` (S1's samples written as a uint16 token file in
    a temporary directory, ``--source tokens --num-hosts 2 --host-id 1``:
    each step's ids are host 1's half of the global meta-batch);
@@ -137,7 +145,14 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    filled through their update kernels; the snapshot's time (device sync
    and copy to the host) held bitwise against the store's tensors copied
    plainly, and each set-level method's decision time on it, its kept-set
-   held against ``prune_epoch`` on those arrays;
+   held against ``prune_epoch`` on those arrays; then ``cluster``: two
+   child processes (``--cluster-child RANK PORT DIR``, a gloo group over
+   a ``TCPStore`` on a free localhost port) share the card, each owning
+   2^23 of 2^24 rows in two blocks, through the multi-host workload
+   (gathers, updates, a selection, the five prune methods, the int8
+   store with a grow, a partitioned checkpoint), bitwise this process's
+   one-process run, the checkpoint restored here onto a replicated and a
+   four-block store; the host legs' times and the store bytes;
 12. ``resume``: ``train``, ``train_pipelined`` (a held batch),
    ``train_quant`` (the int8 ring) and ``train_gc`` (the gradients'
    residuals) killed after 2 steps with
@@ -274,6 +289,13 @@ PER_UNIT = {
     "train_moe": {"fused_xent": 1, "gqa_flash_attention": 2,
                   "fused_score_update": 1},
     "train_gc": SCORING_LEG,
+    # the store in four row blocks (phase 6e): each block's kernels launch
+    # once a scoring leg
+    "train_sharded": {"fused_xent": 1, "gqa_flash_attention": 24,
+                      "fused_score_update": 4},
+    "train_sharded_quant": {"fused_xent": 1, "gqa_flash_attention": 24,
+                            "quant_grow_scales": 4, "quant_ring_slots": 4,
+                            "fused_quant_score_update": 4},
 }
 
 
@@ -2524,6 +2546,236 @@ def phase_serve_encdec() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6e: the sharded score store through the trainer (row blocks)
+# ---------------------------------------------------------------------------
+
+SHARDED_BLOCKS = 4
+# S1's traffic with the store in four row blocks (SH), and B's (S1 with
+# the int8 store, n 65,536) with the int8 wire (SHQ); the card is one
+# device, so the trainer's device list is replaced by four blocks on it
+SHARDED_ARGS = {"train_sharded": TRAIN_ARGS + ["--shard-scores"],
+                "train_sharded_quant": QUANT_ARGS + ["--shard-scores",
+                                                     "--quant-wire"]}
+
+
+@contextlib.contextmanager
+def blocks_on_card(n: int = SHARDED_BLOCKS):
+    """The trainer's device list (``sharding.local_devices``) replaced by
+    ``n`` row blocks on cuda:0."""
+    from repro_torch.distributed import sharding
+    real = sharding.local_devices
+    sharding.local_devices = lambda device: [torch.device("cuda", 0)] * n
+    try:
+        yield
+    finally:
+        sharding.local_devices = real
+
+
+class StoreTap:
+    """The engine's store, recording each update (ids, losses, betas),
+    gather (ids and the values it gave) and selection (weights, k, the
+    generator's state before it, the ids it gave) in order."""
+
+    def __init__(self, store):
+        self.store = store
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self.store, name)
+
+    def update(self, scores, ids, losses, beta1, beta2, *, fused=True):
+        self.calls.append(("update", ids.clone(), losses.clone(), beta1,
+                           beta2))
+        return self.store.update(scores, ids, losses, beta1, beta2,
+                                 fused=fused)
+
+    def gather(self, scores, ids):
+        s, w = self.store.gather(scores, ids)
+        self.calls.append(("gather", ids.clone(), s.clone(), w.clone()))
+        return s, w
+
+    def select(self, weights, k, *, generator=None, gumbel=None):
+        state = generator.get_state()
+        out = self.store.select(weights, k, generator=generator,
+                                gumbel=gumbel)
+        self.calls.append(("select", weights.clone(), k, state, out.clone()))
+        return out
+
+
+def wire_select_errors(weights, k: int, state, got) -> int:
+    """Ids that a wire selection decides otherwise than the exact keys do
+    by more than one key-grid step (each block's candidate span / 127,
+    the widest block's): an id whose key is above the k-th by more than a
+    step must be kept, one below it by more than a step must not."""
+    from repro_torch.core.selection import sample_gumbel
+    g = torch.Generator(device="cuda")
+    g.set_state(state)
+    keys = torch.log(torch.clamp(weights.float(), min=1e-20)) + \
+        sample_gumbel(weights.shape, g, weights.device)
+    B = keys.shape[0]
+    m = min(k, B // SHARDED_BLOCKS)
+    top = keys.reshape(SHARDED_BLOCKS, -1).sort(dim=1, descending=True).values
+    step = float(((top[:, 0] - top[:, m - 1]) / 127.0).max())
+    kth = float(keys.sort(descending=True).values[k - 1])
+    keys, sel = keys.tolist(), set(got.tolist())
+    return sum(1 for i, x in enumerate(keys)
+               if (x > kth + step and i not in sel)
+               or (x < kth - step and i in sel))
+
+
+def store_leg_timings(quant: bool, n: int) -> dict:
+    """One scoring step's store work at the path's shape (B 32: a gather,
+    the update, the Gumbel top-k of 8) on the replicated store and on
+    four row blocks on the card (int8: also with the wire), after the
+    path: device ms and launches a step (torch.profiler), the update's
+    kernels alone (their device ms and launches a step), and the host
+    clock."""
+    from repro_torch.core import scores
+    g = _gen(3)
+    ids = torch.randperm(n, generator=g, device="cuda")[:32].to(torch.int32)
+    losses = 3 * torch.rand(32, generator=g, device="cuda")
+    gum = -torch.log(-torch.log(torch.rand(
+        32, generator=g, device="cuda").clamp(min=1e-30)))
+    blocks = scores.ScoreSharding([torch.device("cuda", 0)] * SHARDED_BLOCKS)
+    runs = [("replicated", None, False), ("blocks", blocks, False)]
+    if quant:
+        runs.append(("blocks_wire", blocks, True))
+    out = {}
+    for name, ss, wire in runs:
+        st = scores.make_store(ss, quantize=quant, block=1024,
+                               residual_rows=1024, wire=wire)
+        leaf = st.init_leaf(n, "cuda")
+
+        def update():
+            st.update(leaf, ids, losses, 0.2, 0.9)
+
+        def leg():
+            w = st.gather(leaf, ids)[1]
+            update()
+            st.select(w, 8, gumbel=gum)
+
+        trace = device_trace(leg)
+        kern = [e for e in _device_rows(update, 20)
+                if "score_update" in e.key or "quant_" in e.key]
+        out[name] = {
+            "device_ms": trace["device_ms"],
+            "launches": trace["launches_per_call"],
+            "update_kernels_device_ms": sum(
+                e.self_device_time_total for e in kern) / 1e3 / 20,
+            "update_kernel_launches": sum(e.count for e in kern) / 20,
+            "host_ms": wall_ms(leg, 50, warmup=2)}
+        del st, leaf
+    return out
+
+
+def sharded_watch(name: str, tr):
+    """Check of SH and SHQ: the store is in four blocks on the card, and
+    the engine's store calls are recorded; after the run (its launch
+    counts already read) the recorded updates are replayed into a
+    replicated store of the same kind on the card. f32: every gather, the
+    selections (from the generator's recorded state), and the rows
+    (blocks concatenated) bitwise the replay's. int8 with the wire: each
+    wire gather within one int8 grid step of the replay's, each wire
+    selection by ``wire_select_errors``; the codes and scales bitwise, no
+    live residual evicted; every updated row read through the wire within
+    one grid step of the replay's, and with the wire off bitwise."""
+    import dataclasses
+
+    from repro_torch.core import scores
+    ss = tr.score_sharding
+    if ss is None or ss.devices != (torch.device("cuda", 0),) \
+            * SHARDED_BLOCKS:
+        raise AssertionError(f"sharded path: store layout {ss}")
+    tap = StoreTap(tr.store)
+    tr.engine.store = tap
+    quant = isinstance(tr.store, scores.QuantizedStore)
+
+    def check(tr, out):
+        if not out["score_store_sharded"]:
+            raise AssertionError("sharded path: summary says replicated")
+        torch.cuda.synchronize()
+        rep = scores.make_store(None, quantize=quant, block=1024,
+                                residual_rows=1024)
+        leaf = rep.init_leaf(tr.n_train, "cuda")
+        counts = {"update": 0, "gather": 0, "select": 0}
+        worst, wrong_sel, ids_all = 0.0, 0, []
+        for call in tap.calls:
+            counts[call[0]] += 1
+            if call[0] == "update":
+                rep.update(leaf, *call[1:])
+                ids_all.append(call[1])
+            elif call[0] == "gather":
+                for got, want in zip(call[2:], rep.gather(leaf, call[1])):
+                    if quant:
+                        err = float((got - want).abs().max())
+                        worst = max(worst, err)
+                        if err > float(want.abs().max()) / 127.0 + 1e-7:
+                            raise AssertionError(
+                                f"SHQ: wire gather off by {err}")
+                    elif not torch.equal(got, want):
+                        raise AssertionError("SH: gather differs from the "
+                                             "replicated replay's")
+            else:
+                weights, k, state, got = call[1:]
+                if quant:
+                    wrong_sel += wire_select_errors(weights, k, state, got)
+                    continue
+                g = torch.Generator(device="cuda")
+                g.set_state(state)
+                if not torch.equal(got, rep.select(weights, k, generator=g)):
+                    raise AssertionError("SH: selection differs from the "
+                                         "replicated replay's")
+        got = tr.state.scores
+        fields = ("s_q", "w_q", "seen_q", "s_scale", "w_scale") if quant \
+            else ("s", "w", "seen")
+        for f in fields:
+            if not torch.equal(torch.cat(getattr(got, f)),
+                               getattr(leaf, f)):
+                raise AssertionError(f"sharded path: {f} differs from the "
+                                     f"replicated replay's")
+        updated = None
+        if quant:
+            ids = torch.cat(ids_all)
+            live = sum(int((b > 0).sum()) for b in got.err_seq)
+            exact = dataclasses.replace(tr.store, wire=False)
+            want = rep.gather(leaf, ids)
+            same = all(torch.equal(a, b) for a, b in zip(
+                exact.gather(got, ids), want))
+            # the run's own gathers read rows still at the prior, which
+            # the wire carries exactly: the updated rows test its grid
+            updated = {}
+            for f, a, b in zip(("s", "w"), tr.store.gather(got, ids), want):
+                err, bound = float((a - b).abs().max()), \
+                    float(b.abs().max()) / 127.0 + 1e-7
+                updated[f] = {"worst_abs_err": err, "bound": bound}
+                if err > bound:
+                    raise AssertionError(f"SHQ: wire gather of the updated "
+                                         f"rows' {f} off by {err} > {bound}")
+            if live != ids.numel() or not same or wrong_sel:
+                raise AssertionError(
+                    f"SHQ: live residuals {live} of {ids.numel()}, wire-off "
+                    f"gathers equal: {same}, selections off by more than a "
+                    f"key-grid step: {wrong_sel}")
+        emit({"phase": f"{name}_check",
+              "calls": counts, "blocks": ss.n_shards,
+              "wire_gather_worst_abs_err": worst if quant else None,
+              "wire_gather_updated_rows": updated,
+              "replay": "bitwise",
+              "store_leg": store_leg_timings(quant, tr.n_train),
+              "card": smi_line()})
+        del leaf
+    return check
+
+
+def phase_sharded(name: str) -> dict:
+    """SH or SHQ through the trainer the CLI builds, the store in four
+    row blocks on the card."""
+    with blocks_on_card():
+        return phase_path(name, SHARDED_ARGS[name],
+                          watch=partial(sharded_watch, name))
+
+
+# ---------------------------------------------------------------------------
 # phase 7: where one step's time goes
 # ---------------------------------------------------------------------------
 
@@ -3175,6 +3427,289 @@ def phase_prune() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 11b: the store's rows owned per process, two processes on the card
+# ---------------------------------------------------------------------------
+
+CLUSTER_N = 1 << 24          # rows; each of 2 processes owns 2^23
+CLUSTER_B, CLUSTER_T = 32, 16
+CLUSTER_GROW = 1 << 21       # the int8 store's grow (2 blocks of 1,024)
+CLUSTER_K = 8
+
+
+def _digest(*arrays) -> str:
+    import hashlib
+
+    import numpy as np
+    h = hashlib.sha1()
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            a = a.cpu().numpy()
+        h.update(np.ascontiguousarray(np.asarray(a)).tobytes())
+    return h.hexdigest()[:16]
+
+
+def cluster_stream(n: int, seed: int, steps: int):
+    """(ids, losses) on the card: B distinct ids a step (the reference's
+    ``tests/test_multihost.py`` workload)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    for _ in range(steps):
+        yield (torch.from_numpy(rng.choice(n, CLUSTER_B, replace=False)
+                                .astype(np.int32)).cuda(),
+               torch.from_numpy(rng.uniform(0.1, 3.0, CLUSTER_B)
+                                .astype(np.float32)).cuda())
+
+
+def _cat(x):
+    return torch.cat(x) if isinstance(x, list) else x
+
+
+def cluster_run(rank: int, world: int, ckpt_dir=None) -> tuple:
+    """The workload both topologies run -> (result, times, f32 store, its
+    leaf). world 1: replicated stores; world 2: this process's half of
+    the rows in two blocks on cuda:0, completed through the host
+    collectives. The f32 store: 16 steps of gathers and updates, a
+    selection, a fill of every row (distinct values), the five prune
+    methods, a partitioned checkpoint (world 2); the int8 store: 16 steps
+    of updates and gathers, its assembled losses, a grow and 4 more
+    steps. Digests of what every process must see alike, the local rows'
+    digests, and (world 2) the times of the host legs."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import scores
+    from repro_torch.core.pruning import prune_epoch_snapshot
+    from repro_torch.distributed.hostcomm import get_comm
+    comm = get_comm()
+    half = CLUSTER_N // world
+
+    def layout(n_global):
+        if world == 1:
+            return None
+        return scores.ScoreSharding([torch.device("cuda", 0)] * 2,
+                                    n_global=n_global,
+                                    offset=rank * n_global // world)
+
+    res, times = {}, {}
+    st = scores.make_store(layout(CLUSTER_N))
+    leaf = st.init_leaf(CLUSTER_N, "cuda")
+    gathers = []
+    for ids, losses in cluster_stream(CLUSTER_N, 0, CLUSTER_T):
+        gathers += list(st.gather(leaf, ids))
+        st.update(leaf, ids, losses, 0.2, 0.9)
+    res["gathers"] = _digest(*gathers)
+    w = st.gather(leaf, torch.arange(CLUSTER_B, dtype=torch.int32,
+                                     device="cuda"))[1]
+    gum = torch.from_numpy(np.random.default_rng(7).gumbel(
+        size=CLUSTER_B).astype(np.float32)).cuda()
+    res["sel"] = st.select(w, CLUSTER_K, gumbel=gum).tolist()
+    # every row scored once more with betas 0 (s = w = the loss), the
+    # losses the 2^24 float32 values from 1.0 up: no two rows tie, so the
+    # top-k of UCB and KA cannot depend on the candidates' order
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ids = torch.randperm(CLUSTER_N, generator=g, device="cuda").to(
+        torch.int32)
+    vals = (torch.arange(CLUSTER_N, dtype=torch.int32, device="cuda")
+            + 0x3F800000).view(torch.float32)
+    for lo in range(0, CLUSTER_N, 1 << 20):
+        st.update(leaf, ids[lo:lo + (1 << 20)], vals[lo:lo + (1 << 20)],
+                  0.0, 0.0)
+    rows = [_cat(getattr(leaf, f)) for f in ("s", "w", "seen")]
+    res["store_bytes"] = sum(r.numel() * r.element_size() for r in rows)
+    if comm is not None:
+        x = np.zeros(CLUSTER_B, np.float32)
+        rt = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            comm.allreduce_sum(x)
+            rt.append((time.perf_counter() - t0) * 1e3)
+        times["gather_round_trip_ms"] = statistics.median(rt)
+        real, legs = comm.allgather, []
+
+        def timed_allgather(arr):
+            t0 = time.perf_counter()
+            out = real(arr)
+            legs.append((time.perf_counter() - t0, int(np.asarray(
+                arr).nbytes)))
+            return out
+        comm.allgather = timed_allgather
+    t0 = time.perf_counter()
+    snap = st.prune_snapshot(leaf)
+    times["snapshot_s"] = time.perf_counter() - t0
+    prev = np.random.default_rng(1).uniform(0.05, 3.0, CLUSTER_N).astype(
+        np.float32)
+    res["prune"], times["prune"] = {}, {}
+    for m in ("eswp", "infobatch", "ucb", "ka", "random"):
+        if comm is not None:
+            legs.clear()
+        t0 = time.perf_counter()
+        r = prune_epoch_snapshot(m, np.random.default_rng(3), snap,
+                                 prev_losses=prev, ratio=0.25)
+        dt = time.perf_counter() - t0
+        res["prune"][m] = [_digest(np.sort(r.kept)),
+                           None if r.grad_scale is None
+                           else _digest(r.grad_scale)]
+        times["prune"][m] = {"decide_s": dt} if comm is None else {
+            "decide_s": dt, "comm_s": sum(x[0] for x in legs),
+            "comm_bytes_sent": sum(x[1] for x in legs)}
+    res["full_losses"] = _digest(snap.full_losses())
+    if comm is not None:
+        comm.allgather = real
+    if ckpt_dir is not None:
+        ck = Checkpointer(ckpt_dir)
+        ck.save({"scores": st.leaf_state(leaf)}, step=CLUSTER_T,
+                partition=st.checkpoint_partition())
+        times["checkpoint_write"] = ck.timings[-1]
+
+    q = scores.make_store(layout(CLUSTER_N), quantize=True, block=1024,
+                          residual_rows=1024)
+    qs = q.init_leaf(CLUSTER_N, "cuda")
+    gathers = []
+    for ids, losses in cluster_stream(CLUSTER_N, 2, CLUSTER_T):
+        q.update(qs, ids, losses, 0.2, 0.9)
+        gathers += list(q.gather(qs, ids))
+    res["q_gathers"] = _digest(*gathers)
+    res["q_full_losses"] = _digest(q.prune_snapshot(qs).full_losses())
+    if comm is not None:
+        every = torch.cat([ids for ids, _ in cluster_stream(
+            CLUSTER_N, 2, CLUSTER_T)])
+        exact = q.gather(qs, every)[0]
+        wired = dataclasses.replace(q, wire=True).gather(qs, every)[0]
+        err = float((wired - exact).abs().max())
+        if err > float(exact.abs().max()) / 127.0 + 1e-7:
+            raise AssertionError(f"cluster: wire gather off by {err}")
+        times["wire_gather_worst_abs_err"] = err
+    q, qs = q.grow(qs, CLUSTER_GROW)
+    n2 = CLUSTER_N + CLUSTER_GROW
+    gathers = []
+    for ids, losses in cluster_stream(n2, 4, 4):
+        q.update(qs, ids, losses, 0.2, 0.9)
+        gathers += list(q.gather(qs, ids))
+    res["q_grown_gathers"] = _digest(*gathers)
+    res["q_store_bytes"] = sum(_cat(getattr(qs, f.name)).numel()
+                               * _cat(getattr(qs, f.name)).element_size()
+                               for f in dataclasses.fields(qs))
+    codes = [_cat(getattr(qs, f)) for f in ("s_q", "w_q", "seen_q")]
+    scl = [_cat(getattr(qs, f)) for f in ("s_scale", "w_scale")]
+    h2, nb2 = n2 // 2, n2 // 2 // 1024
+    if world == 1:
+        res["q_rows"] = [_digest(*(c[p * h2:(p + 1) * h2] for c in codes),
+                                 *(s[p * nb2:(p + 1) * nb2] for s in scl))
+                         for p in range(2)]
+    else:
+        res["q_rows"] = _digest(*codes, *scl)
+    if world == 2:
+        res["rows"] = _digest(*rows)
+    else:
+        res["rows"] = [_digest(*(r[p * half // 2:(p + 1) * half // 2]
+                                 for r in rows)) for p in range(2)]
+    return res, times, st, leaf
+
+
+def cluster_child(rank: int, port: int, ckpt_dir: str) -> None:
+    """``--cluster-child RANK PORT DIR``: one process of phase
+    ``cluster``. Process 0 stands up the ``TCPStore`` on ``port``; both
+    join a gloo group of two over it (``get_comm`` finds its store), run
+    ``cluster_run`` on half the rows and print one JSON line."""
+    import datetime
+
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    store = dist.TCPStore("127.0.0.1", port, 2, rank == 0,
+                          timeout=datetime.timedelta(seconds=300))
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=2)
+    res, times, _, _ = cluster_run(rank, 2, ckpt_dir)
+    emit({"cluster_child": rank, "result": res, "times": times})
+    dist.destroy_process_group()
+
+
+def phase_cluster() -> None:
+    """Two processes share cuda:0, each owning 2^23 of 2^24 rows in two
+    row blocks, their host legs through ``HostComm`` over the gloo group's
+    store; meanwhile this process runs the same workload on replicated
+    stores on the card. Every result (gathers, the selection, the five
+    prune methods' kept-sets, grad scales and s-snapshots, the int8
+    store's gathers before and after its grow and its assembled losses)
+    must be bitwise this run's, and each process's rows its range; the
+    partitioned checkpoint both wrote is restored here onto a replicated
+    and onto a four-block template, bitwise this run's store. A child
+    that fails fails the phase."""
+    import shutil
+    import socket
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import scores
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    d = tempfile.mkdtemp()
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--cluster-child",
+         str(r), str(port), d], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        ref, ref_times, st, leaf = cluster_run(0, 1)
+        outs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    try:
+        children_s = time.perf_counter() - t0
+        got = []
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            lines = [json.loads(x) for x in o.splitlines()
+                     if x.startswith('{"cluster_child"')]
+            if p.returncode != 0 or not lines:
+                raise AssertionError(f"cluster: process {r} failed "
+                                     f"(rc {p.returncode}):\n{o[-4000:]}")
+            got.append(lines[-1])
+        differ = []
+        for r, g in enumerate(got):
+            for k, v in ref.items():
+                want = v[r] if k in ("rows", "q_rows") else v
+                if k not in ("store_bytes", "q_store_bytes") \
+                        and g["result"][k] != want:
+                    differ.append((r, k))
+        restored = {}
+        for name, store in (("replicated", scores.make_store(None)),
+                            ("four_blocks", scores.make_store(
+                                scores.ScoreSharding(
+                                    [torch.device("cuda", 0)] * 4)))):
+            like = store.init_leaf(CLUSTER_N, "cuda")
+            back = store.load_leaf_state(Checkpointer(d).restore(
+                {"scores": store.leaf_state(like)}, step=CLUSTER_T)[
+                    "scores"], like)
+            restored[name] = all(torch.equal(_cat(getattr(back, f)),
+                                             getattr(leaf, f))
+                                 for f in ("s", "w", "seen"))
+        emit({"phase": "cluster", "n": CLUSTER_N, "processes": 2,
+              "blocks_per_process": 2, "steps": CLUSTER_T,
+              "differing": differ, "restored_bitwise": restored,
+              "children_s": children_s,
+              "times": [g["times"] for g in got],
+              "store_bytes": [g["result"]["store_bytes"] for g in got],
+              "int8_store_bytes": [g["result"]["q_store_bytes"]
+                                   for g in got],
+              "one_process": {"store_bytes": ref["store_bytes"],
+                              "int8_store_bytes": ref["q_store_bytes"],
+                              "times": ref_times},
+              "card": smi_line()})
+        if differ or not all(restored.values()):
+            raise AssertionError(f"cluster: differs from the one-process "
+                                 f"run: {differ}, restored {restored}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        del st, leaf
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 12: checkpoint and resume, bitwise, in a deterministic subprocess
 # ---------------------------------------------------------------------------
 
@@ -3380,7 +3915,58 @@ def segsum_bench(src: str) -> None:
           "card": smi_line()})
 
 
-BENCHES = {"--store-bench": store_bench, "--segsum-bench": segsum_bench}
+def steps_bench(src: str) -> None:
+    """``--steps-bench SRC``: on the port found under SRC, S1's and B's
+    trainer runs at 12 steps (each step's ms, and the median step and
+    data wait after the first), then each leg of a step as phase ``legs``
+    takes them (scoring forward and store, selection, training forward
+    and backward, AdamW, the whole ES step), each by the host clock to a
+    device sync (median of 5) and by torch.profiler (device ms and
+    launches a call). Two trees compare in one call as parent, change,
+    change, parent."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    import repro_torch
+    from repro_torch.core.selection import select_minibatch
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import apply_updates
+    phase_device()
+    runs = {}
+    for name, args in (("S1", TRAIN_ARGS), ("B", QUANT_ARGS)):
+        torch.cuda.empty_cache()
+        out = train.main(args + ["--max-steps", "12"])
+        torch.cuda.synchronize()
+        steps = [r["step_time"] * 1e3 for r in out["metrics"]]
+        run = {"step_ms": steps,
+               "median_step_ms": statistics.median(steps[1:]),
+               "median_data_wait_ms": statistics.median(
+                   r["data_wait"] * 1e3 for r in out["metrics"][1:])}
+        tr = _trainer(args)
+        eng, st = tr.engine, tr.state
+        batch = tr._place(tr.ds.batch(tr.sampler.batch_ids(0, 0)))
+        w = eng._score_leg(st, batch)[0]
+        b = eng.es_cfg.minibatch
+        idx = select_minibatch("es", w, b, generator=st.generator)
+        sel = {k: v[idx.long()] for k, v in batch.items()}
+        grads = eng._loss_and_grads(st.params, sel)[2]
+        legs = {"score_forward_and_store": lambda: eng._score_leg(st, batch),
+                "select": lambda: select_minibatch("es", w, b,
+                                                   generator=st.generator),
+                "train_forward_backward": lambda: eng._loss_and_grads(
+                    st.params, sel),
+                "adamw": lambda: apply_updates(eng.opt_cfg, st.params, grads,
+                                               st.opt, 1.0),
+                "whole_step": lambda: eng.es_step(st, batch)}
+        run["legs"] = {k: {"host_ms": wall_ms(fn, 5), **device_trace(fn, 5)}
+                       for k, fn in legs.items()}
+        runs[name] = run
+        del tr, eng, st, batch, w, sel, grads, out
+    emit({"phase": "steps_bench", "src": src,
+          "port": str(Path(repro_torch.__file__).parent), "runs": runs,
+          "card": smi_line()})
+
+
+BENCHES = {"--store-bench": store_bench, "--segsum-bench": segsum_bench,
+           "--steps-bench": steps_bench}
 
 
 def main() -> None:
@@ -3394,9 +3980,12 @@ def main() -> None:
     if sys.argv[1:] == ["--resume-phase"]:
         resume_phase()
         return
+    if len(sys.argv) == 5 and sys.argv[1] == "--cluster-child":
+        cluster_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
     if len(sys.argv) > 1:
         sys.exit("usage: chip_smoke.py [--store-bench SRC | --segsum-bench "
-                 "SRC]")
+                 "SRC | --steps-bench SRC]")
     seconds = {}
 
     def timed(name, fn):
@@ -3413,6 +4002,7 @@ def main() -> None:
     timed("model", phase_model)
     launches = {}
     runs = {**{p: lambda p=p: phase_path(p) for p in PATH_ARGS},
+            **{p: lambda p=p: phase_sharded(p) for p in SHARDED_ARGS},
             "train_tokens": phase_train_tokens, "serve": phase_serve,
             "service": phase_service,
             **{p: lambda p=p: phase_family(p) for p in FAMILY_ARGS},
@@ -3428,7 +4018,7 @@ def main() -> None:
                      ("data", phase_data),
                      ("legs_pipelined", phase_legs_pipelined),
                      ("memory", phase_memory), ("prune", phase_prune),
-                     ("resume", phase_resume)):
+                     ("cluster", phase_cluster), ("resume", phase_resume)):
         timed(name, fn)
     emit({"phase": "seconds", "seconds": seconds,
           "total": round(sum(seconds.values()), 1)})

@@ -25,8 +25,25 @@ parameters in place, and pipelined ES reads them on a second stream.
 its path, cast to the template leaf's dtype and device; a leaf the
 checkpoint lacks keeps its template value.
 
-Not ported: the partitioned and cluster writes of multi-process runs
-(``partition``, ``_write_cluster``, the ``#offset`` row blocks).
+Multi-process runs (the reference's layout, ``checkpointer.py:101-135,
+185-236, 290-345``), two cases:
+
+* no ``partition``: every process holds the same state, and only process
+  0 writes it (``_writer_only``);
+* ``partition=`` (``Store.checkpoint_partition()``, per-process score
+  rows): each process's leaves under the partition's prefixes are only its
+  row range, saved as blocks keyed ``<path>#<offset>`` (the offset is the
+  process's first row, or with ``per_leaf`` its rank times the leaf's
+  length: the int8 store's rows, scales and ring slots split evenly).
+  With a comm (``_write_cluster``) process 0 writes ``arrays.pt`` (its
+  blocks and every other leaf) and the manifest, which records the union
+  of every process's leaves, and process p writes ``arrays.part<p>.pt``.
+
+Restore merges every ``arrays*.pt`` of the step, assembles a leaf from
+its blocks, and, under a ``partition``, slices it to the template's row
+range. So a checkpoint of any process count restores on any other,
+replicated or in row blocks. The directory must be one every process
+reads.
 """
 from __future__ import annotations
 
@@ -44,6 +61,7 @@ import torch
 _SEP = "/"
 _EXTRA = "extra/"
 _ARRAYS = "arrays.pt"
+_BLOCK = "#"     # <path>#<offset>: a row block of a process-owned leaf
 
 
 def flatten(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -70,6 +88,55 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
 
 def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).replace("torch.", "")
+
+
+def _block_offset(partition: Dict, leaf) -> int:
+    """A process-owned leaf's first row in the assembled array."""
+    if partition.get("per_leaf"):
+        return int(partition.get("rank", 0)) * int(leaf.shape[0])
+    return int(partition.get("offset", 0))
+
+
+def _split_partitioned(flat: Dict[str, torch.Tensor],
+                       partition: Optional[Dict]) -> Dict[str, torch.Tensor]:
+    """Rename the process-owned leaves to their offset-tagged block keys."""
+    if not partition:
+        return dict(flat)
+    prefixes = tuple(partition.get("prefixes", ()))
+    return {(f"{k}{_BLOCK}{_block_offset(partition, v):012d}"
+             if prefixes and k.startswith(prefixes) else k): v
+            for k, v in flat.items()}
+
+
+def _assemble_blocks(data: Dict[str, torch.Tensor], key: str
+                     ) -> Optional[torch.Tensor]:
+    """The full leaf from its offset-tagged row blocks, if it has any."""
+    pre = key + _BLOCK
+    blocks = {int(k[len(pre):]): v for k, v in data.items()
+              if k.startswith(pre)}
+    if not blocks:
+        return None
+    offs = sorted(blocks)
+    n = offs[-1] + blocks[offs[-1]].shape[0]
+    out = torch.zeros((n,) + tuple(blocks[offs[0]].shape[1:]),
+                      dtype=blocks[offs[0]].dtype)
+    for o in offs:
+        out[o:o + blocks[o].shape[0]] = blocks[o]
+    return out
+
+
+def _writer_only() -> bool:
+    """False on every process but 0 of a multi-process run: with no
+    partition each process holds the same state, and writing it from
+    every one would race the same directory."""
+    from ..distributed.hostcomm import get_comm
+    comm = get_comm()
+    return comm is None or comm.process_index == 0
+
+
+def _descriptors(host: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
+    return {k: {"shape": list(v.shape), "dtype": _dtype_name(v)}
+            for k, v in host.items()}
 
 
 class Checkpointer:
@@ -104,12 +171,14 @@ class Checkpointer:
 
     # ------------------------------------------------------------------
     def _snapshot(self, state: Any, extras: Optional[Dict[str, np.ndarray]],
-                  is_async: bool) -> Dict[str, torch.Tensor]:
-        """Host copies of every leaf and extra, taken now."""
+                  is_async: bool, partition: Optional[Dict] = None
+                  ) -> Dict[str, torch.Tensor]:
+        """Host copies of every leaf (process-owned ones block-keyed) and
+        extra, taken now."""
         t0 = time.perf_counter()
-        flat = flatten(state)
-        if any(t.is_cuda for t in flat.values()):
-            torch.cuda.synchronize()     # every stream of the device
+        flat = _split_partitioned(flatten(state), partition)
+        for dev in {t.device for t in flat.values() if t.is_cuda}:
+            torch.cuda.synchronize(dev)  # every stream of the device
         host = {k: t.detach().to("cpu", copy=True) for k, t in flat.items()}
         for k, v in (extras or {}).items():
             host[_EXTRA + k] = torch.from_numpy(np.array(v))
@@ -119,18 +188,35 @@ class Checkpointer:
 
     def save(self, state: Any, step: int,
              metadata: Optional[Dict] = None,
-             extras: Optional[Dict[str, np.ndarray]] = None) -> Path:
-        """Write ``state`` (nested dicts of tensors) as ``step`` now."""
+             extras: Optional[Dict[str, np.ndarray]] = None,
+             partition: Optional[Dict] = None) -> Path:
+        """Write ``state`` (nested dicts of tensors) as ``step`` now;
+        ``partition`` marks the leaves that cover only this process's
+        rows (every process then takes part in the write)."""
         self.wait()         # after any save still in flight
-        host = self._snapshot(state, extras, False)
+        host = self._snapshot(state, extras, False, partition)
+        comm = (partition or {}).get("comm")
+        if comm is not None:
+            return self._write_cluster(host, step, dict(metadata or {}),
+                                       partition, comm)
+        if not _writer_only():
+            return self.step_dir(step)     # process 0 writes for the run
         return self._write(host, step, dict(metadata or {}))
 
     def save_async(self, state: Any, step: int,
                    metadata: Optional[Dict] = None,
-                   extras: Optional[Dict[str, np.ndarray]] = None) -> None:
-        """Snapshot ``state`` now; write it on a thread (``wait`` joins)."""
+                   extras: Optional[Dict[str, np.ndarray]] = None,
+                   partition: Optional[Dict] = None) -> None:
+        """Snapshot ``state`` now; write it on a thread (``wait`` joins).
+        A cluster write stays on the caller's thread: its barriers must
+        keep the collectives' order."""
+        if (partition or {}).get("comm") is not None:
+            self.save(state, step, metadata, extras, partition)
+            return
         self.wait()
-        host = self._snapshot(state, extras, True)
+        host = self._snapshot(state, extras, True, partition)
+        if not _writer_only():
+            return
         md = dict(metadata or {})
 
         def work():
@@ -151,19 +237,11 @@ class Checkpointer:
             raise err
 
     # ------------------------------------------------------------------
-    def _write(self, host: Dict[str, torch.Tensor], step: int,
-               metadata: Dict) -> Path:
-        t0 = time.perf_counter()
-        final = self.step_dir(step)
-        tmp = Path(str(final) + ".tmp")
-        if tmp.exists():
-            shutil.rmtree(tmp)
-        tmp.mkdir(parents=True)
-        torch.save(host, tmp / _ARRAYS)
-        manifest = {"step": step, "time": time.time(),
-                    "leaves": {k: {"shape": list(v.shape),
-                                   "dtype": _dtype_name(v)}
-                               for k, v in host.items()},
+    def _publish(self, tmp: Path, step: int, leaves: Dict[str, Dict],
+                 metadata: Dict) -> int:
+        """Manifest, fsync, one atomic rename, then keep-k -> bytes on
+        disk: the tail every writer goes through."""
+        manifest = {"step": step, "time": time.time(), "leaves": leaves,
                     "metadata": metadata}
         (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
         nbytes = 0
@@ -171,13 +249,61 @@ class Checkpointer:
             with open(f, "rb") as fh:
                 os.fsync(fh.fileno())
             nbytes += f.stat().st_size
+        final = self.step_dir(step)
         if final.exists():
             shutil.rmtree(final)
         os.replace(tmp, final)
         self._gc()
+        return nbytes
+
+    def _tmp(self, step: int) -> Path:
+        tmp = Path(str(self.step_dir(step)) + ".tmp")
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        return tmp
+
+    def _write(self, host: Dict[str, torch.Tensor], step: int,
+               metadata: Dict) -> Path:
+        t0 = time.perf_counter()
+        tmp = self._tmp(step)
+        torch.save(host, tmp / _ARRAYS)
+        nbytes = self._publish(tmp, step, _descriptors(host), metadata)
         self.timings.append({"op": "write", "bytes": nbytes,
                              "seconds": time.perf_counter() - t0})
-        return final
+        return self.step_dir(step)
+
+    def _write_cluster(self, host: Dict[str, torch.Tensor], step: int,
+                       metadata: Dict, partition: Dict, comm) -> Path:
+        """Barrier-ordered write of every process: process 0 writes
+        ``arrays.pt`` (its blocks and every other leaf) and the manifest,
+        process p its blocks to ``arrays.part<p>.pt``; the leaves'
+        descriptors are exchanged so the manifest records their union."""
+        t0 = time.perf_counter()
+        p = comm.process_index
+        tmp = self._tmp(step) if p == 0 else \
+            Path(str(self.step_dir(step)) + ".tmp")
+        comm.barrier("ckpt-mkdir")
+        mine = host if p == 0 else {k: v for k, v in host.items()
+                                    if _BLOCK in k}
+        torch.save(mine, tmp / (_ARRAYS if p == 0 else
+                                f"arrays.part{p}.pt"))
+        # the allgather also orders every part's write before the publish
+        packed = comm.allgather(np.frombuffer(
+            json.dumps(_descriptors(mine)).encode(), np.uint8))
+        nbytes = 0
+        if p == 0:
+            leaves = {}
+            for buf in packed:
+                leaves.update(json.loads(bytes(buf).decode()))
+            md = dict(metadata, process_count=comm.process_count,
+                      partitioned={"prefixes": list(partition["prefixes"]),
+                                   "n_global": int(partition["n_global"])})
+            nbytes = self._publish(tmp, step, leaves, md)
+        comm.barrier("ckpt-done")
+        self.timings.append({"op": "write", "bytes": nbytes,
+                             "seconds": time.perf_counter() - t0})
+        return self.step_dir(step)
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -191,21 +317,42 @@ class Checkpointer:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         return step
 
-    def _load(self, step: int) -> Dict[str, torch.Tensor]:
+    def _load(self, step: int, name: str = _ARRAYS
+              ) -> Dict[str, torch.Tensor]:
         # mapped: a caller that reads a few entries reads only those
-        return torch.load(self.step_dir(step) / _ARRAYS, map_location="cpu",
+        return torch.load(self.step_dir(step) / name, map_location="cpu",
                           weights_only=True, mmap=True)
 
-    def restore(self, template: Dict, step: Optional[int] = None) -> Dict:
+    def _load_all(self, step: int) -> Dict[str, torch.Tensor]:
+        """Every array file of the step merged (block keys are unique)."""
+        data: Dict[str, torch.Tensor] = {}
+        for f in sorted(self.step_dir(step).glob("arrays*.pt")):
+            data.update(self._load(step, f.name))
+        return data
+
+    def restore(self, template: Dict, step: Optional[int] = None,
+                partition: Optional[Dict] = None) -> Dict:
         """``template`` (nested dicts of tensors) with each leaf loaded
         from ``step`` (default: the latest), cast to the leaf's dtype and
-        device; leaves the checkpoint lacks keep their template value."""
+        device; leaves the checkpoint lacks keep their template value.
+
+        A leaf saved as row blocks is assembled whole; under a
+        ``partition`` (this run's per-process rows) a leaf of its prefixes
+        is sliced to the template's row range, so any process count
+        restores any other."""
         t0 = time.perf_counter()
         step = self._step(step)
-        data = self._load(step)
+        data = self._load_all(step)
+        prefixes = tuple((partition or {}).get("prefixes", ()))
         out, missing = {}, []
         for key, leaf in flatten(template).items():
             arr = data.get(key)
+            if arr is None:
+                arr = _assemble_blocks(data, key)
+            if arr is not None and prefixes and key.startswith(prefixes) \
+                    and arr.shape[:1] != leaf.shape[:1]:
+                o = _block_offset(partition, leaf)
+                arr = arr[o:o + leaf.shape[0]]
             if arr is None:
                 missing.append(key)
                 out[key] = leaf

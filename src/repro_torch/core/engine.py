@@ -38,10 +38,12 @@ per firing for the drift cadence (``_settle`` reads the servo's
 comparison, after the step's work is enqueued). The trainer adds one a
 step, its read of the loss.
 
-The engine is generic in the store (``ReplicatedStore`` or the int8
-``QuantizedStore``). The state mutates in place: parameters and optimizer
-moments in the optimizer, the score state in the store kernel. Steps
-return the state for symmetry with the reference.
+The engine is generic in the store (``ReplicatedStore``, the row blocks
+of ``ShardedStore``, or the int8 ``QuantizedStore`` over either): a gather
+returns on the ids' device, the model's, wherever the rows lie. The state
+mutates in place: parameters and optimizer moments in the optimizer, the
+score state in the store kernel. Steps return the state for symmetry with
+the reference.
 """
 from __future__ import annotations
 
@@ -639,7 +641,9 @@ class ESEngine:
 
     def state_dict(self, state: TrainState) -> Dict:
         """``state`` as nested dicts of tensors, for a checkpoint: the
-        parameters, the optimizer's moments and step, the store's leaf,
+        parameters, the optimizer's moments and step, the store's leaf
+        (one tensor a field, ``Store.leaf_state``: a sharded leaf's blocks
+        concatenated),
         ``pending_w``, the cadence (a pending servo settled first: it is
         what the next step would read), the selection generator's state
         (a CUDA generator's is its seed and offset; re-seeding it would
@@ -653,8 +657,7 @@ class ESEngine:
 
         tree = {"params": state.params,
                 "opt": {"m": opt.m, "step": i64(opt.step)},
-                "scores": {f.name: getattr(state.scores, f.name)
-                           for f in dataclasses.fields(state.scores)},
+                "scores": self.store.leaf_state(state.scores),
                 "pending_w": state.pending_w,
                 "cadence": {"drift_s": cad.drift_s, "drift_w": cad.drift_w,
                             "since_prune": cad.since_prune,
@@ -677,7 +680,7 @@ class ESEngine:
             params=tree["params"],
             opt=OptState(step=int(opt["step"]), m=opt["m"],
                          v=opt.get("v")),
-            scores=type(state.scores)(**tree["scores"]),
+            scores=self.store.load_leaf_state(tree["scores"], state.scores),
             generator=state.generator,
             cadence=CadenceState(drift_s=cad["drift_s"],
                                  drift_w=cad["drift_w"],

@@ -23,10 +23,11 @@ reductions (exact f64 sums and extrema, so the InfoBatch 1/(1-r) rescale
 stays unbiased), threshold methods merge per-block candidate top-k
 lists, and every random draw is made by GLOBAL sample position. So the
 same snapshot and the same ``np.random.Generator`` give the reference's
-kept-set and ``grad_scale`` bit for bit, for any block layout. The
-cross-process legs (``comm``: an object with ``allgather``,
-``allreduce_sum`` and ``allreduce_max``) stay in the code; no store of
-the port yields a ``comm`` until the multi-GPU slice.
+kept-set and ``grad_scale`` bit for bit, for any block layout. With
+per-process score rows the snapshot carries a ``comm``
+(``distributed.hostcomm.HostComm``: ``allgather``, ``allreduce_sum``,
+``allreduce_max``) and the statistics and candidate merges reduce across
+processes through it, exactly.
 """
 from __future__ import annotations
 

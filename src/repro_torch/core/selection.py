@@ -10,8 +10,11 @@ valid document slots and returns a kept mask.
 
 The Gumbel noise comes from the caller's ``torch.Generator``, or is
 injected as a tensor (``gumbel=``) so that a test can hand the port the
-very noise JAX's step drew. ``lax.top_k`` and ``torch.topk`` may order
-ties differently, so compare selected index SETS.
+very noise JAX's step drew. The Gumbel top-k orders as ``jax.lax.top_k``
+does (``top_k``: a stable sort, ties to the lower index), which is what
+lets a sharded store's candidate merge give the replicated selection bit
+for bit; the other top-k's are ``torch.topk``, whose order among ties is
+unspecified, so compare their index SETS.
 """
 from __future__ import annotations
 
@@ -34,6 +37,14 @@ def sample_gumbel(shape, generator: Optional[torch.Generator],
     return -torch.log(-torch.log(u.clamp(min=tiny)))
 
 
+def top_k(keys: torch.Tensor, k: int, dim: int = -1):
+    """-> (values, indices) of the k largest ``keys`` along ``dim`` in
+    ``jax.lax.top_k``'s order: descending, equal keys by increasing
+    index."""
+    values, indices = torch.sort(keys, dim=dim, descending=True, stable=True)
+    return values.narrow(dim, 0, k), indices.narrow(dim, 0, k)
+
+
 def gumbel_topk_select(weights: torch.Tensor, k: int, *,
                        generator: Optional[torch.Generator] = None,
                        gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -42,7 +53,7 @@ def gumbel_topk_select(weights: torch.Tensor, k: int, *,
     logw = torch.log(torch.clamp(weights.float(), min=_EPS))
     if gumbel is None:
         gumbel = sample_gumbel(weights.shape, generator, weights.device)
-    return torch.topk(logw + gumbel.to(logw.device), k).indices.to(torch.int32)
+    return top_k(logw + gumbel.to(logw.device), k)[1].to(torch.int32)
 
 
 def topk_select(weights: torch.Tensor, k: int) -> torch.Tensor:

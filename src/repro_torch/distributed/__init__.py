@@ -1,1 +1,2 @@
-"""Distributed-optimization pieces of the port (one device so far)."""
+"""Distributed pieces of the port: int8 compression, host collectives,
+the score store's device layout, and fault tolerance."""

@@ -1,6 +1,5 @@
-"""Preemption and straggler handling of the trainer (counterpart of
-``repro/distributed/fault_tolerance.py:29-91``; framework-free, one
-process).
+"""Preemption and straggler handling of the trainer, and the elastic
+restore (counterpart of ``repro/distributed/fault_tolerance.py:29-106``).
 
   PreemptionHandler : SIGTERM/SIGINT -> checkpoint-and-exit at the next
                       step boundary (never mid-optimizer-update): the
@@ -10,16 +9,14 @@ process).
                       ``threshold`` x the running mean once past
                       ``warmup_steps``, and keeps flagged steps out of
                       the mean.
-
-The reference's ``elastic_restart`` (a new mesh for the surviving device
-count, the checkpoint restored onto it) needs several processes and
-belongs to the multi-GPU slice; it has no counterpart here.
+  elastic_restart   : the store's device list rebuilt for the devices
+                      present, and the checkpoint restored onto it.
 """
 from __future__ import annotations
 
 import dataclasses
 import signal
-from typing import List, Optional
+from typing import Any, Callable, List, Optional
 
 
 class PreemptionHandler:
@@ -88,3 +85,21 @@ class StragglerMonitor:
     @property
     def mean_step_time(self) -> Optional[float]:
         return self._mean
+
+
+def elastic_restart(checkpointer, make_template: Callable[[list], Any],
+                    device="cuda", step: Optional[int] = None):
+    """Restore onto the devices present now -> ``(devices, state)``.
+
+    ``make_template(devices)`` builds a state (nested dicts of tensors)
+    whose score leaves lie in one row block per device of
+    ``sharding.local_devices(device)``; the checkpointer reshards the
+    saved leaves onto it, whatever device count wrote them. The
+    reference returns its new mesh; the port has none, and returns the
+    device list in its place.
+    """
+    from . import sharding
+    devices = sharding.local_devices(device)
+    template = make_template(devices)
+    state = checkpointer.restore(template, step=step)
+    return devices, state

@@ -1,5 +1,6 @@
 """The ES trainer and its CLI (counterpart of ``repro/launch/train.py``:
-``Trainer`` :104-265, ``_grow_store``/``grow`` :293-321,
+``Trainer`` :104-265, ``_make_score_sharding`` :268-290,
+``_grow_store``/``grow`` :293-321,
 ``_resume``/``_checkpoint`` :323-395, ``_prune_for_epoch`` :397-435,
 ``_record``/``train`` :437-588, ``main`` :591).
 
@@ -14,6 +15,9 @@
     ... --pack --max-segments 4 --meta-batch 16 --minibatch 16
     # the int8 score store
     ... --quant-scores --quant-block 1024
+    # the store in row blocks, one a device of the run (int8: the wire)
+    ... --shard-scores
+    ... --shard-scores --quant-scores --quant-wire
     # ESWP: ES steps plus a kept-set of 80 % of the samples, re-drawn
     # before each epoch (or, --prune-cadence drift, when the scores moved)
     ... --method eswp --prune-cadence drift
@@ -39,9 +43,11 @@ synthetic source, the packed synthetic documents (``--pack``,
 ``--source packed``), token files (``--source tokens|sharded`` with
 ``--data-path``) or SFT pairs (``--source sft``, JSONL at ``--data-path``
 or the synthetic set), through the prefetching data pipeline (on by
-default; ``--no-prefetch``, ``--prefetch-depth``); the f32 or the
-replicated int8 score store (``--quant-scores``), each with its fused
-kernel or its scatter form; checkpoints and a bit-exact resume, mid-epoch
+default; ``--no-prefetch``, ``--prefetch-depth``); the f32 or the int8
+score store (``--quant-scores``), replicated or in row blocks
+(``--shard-scores``, with ``--quant-wire`` for the int8 store's wire),
+each with its fused kernel or its scatter form; checkpoints and a
+bit-exact resume, mid-epoch
 and with a pipelined held batch included (``--ckpt-dir``); int8 gradient
 compression with error feedback on one device (``--grad-compression``).
 The dense, MoE, SSM and hybrid families run (``--arch``). vlm and encdec
@@ -49,9 +55,15 @@ are refused at construction with the reference's reasons ("vlm needs
 image embeddings", "encdec needs frame embeddings"): no source makes
 their frontend stubs, and the reference's trainer runs neither (its
 ``lm_hidden`` asserts them); they train through ``ESEngine`` on batches
-that carry ``image_embeds`` or ``frames``. Every other flag that asks for
-anything but its default (``--shard-scores``, ``--quant-wire``) raises
-"not ported yet".
+that carry ``image_embeds`` or ``frames``.
+
+``--shard-scores`` splits the store into one row block per device of the
+run (``distributed.sharding.local_devices``: every CUDA device, or the one
+CPU), as the reference splits it over every device of its mesh. With
+fewer than two blocks, or a store that the blocks do not divide, it warns
+as the reference does and the store stays replicated; the summary's
+``score_store_sharded`` says which. The model stays on ``--device``: the
+reference's trainer shards only the store.
 
 Preemption and stragglers (``distributed/fault_tolerance.py``), as the
 reference's trainer: SIGTERM or SIGINT only sets a flag, and after the
@@ -114,6 +126,7 @@ import argparse
 import dataclasses
 import json
 import time
+import warnings
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
@@ -131,6 +144,7 @@ from ..core.scores import make_store
 from ..data.pipeline import (DataPipeline, Prefetcher, SyncStream,
                              get_source, make_placer)
 from ..data.pipeline.sources import SOURCES
+from ..distributed import sharding
 from ..distributed.fault_tolerance import PreemptionHandler, StragglerMonitor
 from ..models.transformer import MEMORY_NEEDED, lm_per_sample_loss
 from ..optim.adamw import OptConfig
@@ -182,27 +196,17 @@ class TrainerConfig:
     ckpt_dir: Optional[str] = None
     ckpt_every_steps: int = 50
     grad_compression: bool = False   # int8 EF gradient compression
-    # not ported yet: each must keep its default (see _check_supported)
-    shard_scores: bool = False
-    quant_wire: bool = False
+    shard_scores: bool = False    # the store in row blocks over the devices
+    quant_wire: bool = False      # int8 cross-block gather/select payloads
 
 
 SET_LEVEL = {"eswp", "infobatch", "ucb", "ka", "random"}
 BATCH_LEVEL = {"es", "eswp", "loss", "order"}
 METHODS = ("es", "eswp", "loss", "order", "baseline", "infobatch", "ucb",
            "ka", "random")
-# field -> what it would turn on; each must keep its default
-_NOT_PORTED = {
-    "shard_scores": "--shard-scores (sharded score store)",
-    "quant_wire": "--quant-wire (int8 wire of the sharded store)",
-}
 
 
 def _check_supported(tc: TrainerConfig) -> None:
-    defaults = TrainerConfig()
-    for field, what in _NOT_PORTED.items():
-        if getattr(tc, field) != getattr(defaults, field):
-            raise NotImplementedError(f"{what} is not ported yet")
     if tc.source not in SOURCES:
         raise ValueError(f"unknown --source {tc.source!r}; one of "
                          f"{SOURCES}")
@@ -225,7 +229,8 @@ def _hosts(tc: TrainerConfig) -> Tuple[int, int]:
 
 
 class Trainer:
-    """ES trainer on one device.
+    """ES trainer: the model on one device, the score store on it or in
+    row blocks over the run's devices (``--shard-scores``).
 
     ``model_cfg`` overrides the ``--arch`` config; ``init_params`` (the
     port's parameter dict, e.g. from ``bridge.params_from_jax``) replaces
@@ -312,8 +317,11 @@ class Trainer:
                                   steps_per_epoch=steps_first,
                                   beta1=beta1, beta2=beta2,
                                   gain_floor=tc.gain_floor)
-        self.store = make_store(None, quantize=tc.quant_scores,
-                                block=tc.quant_block)
+        self.score_sharding = self._make_score_sharding() \
+            if tc.shard_scores else None
+        self.store = make_store(self.score_sharding,
+                                quantize=tc.quant_scores,
+                                block=tc.quant_block, wire=tc.quant_wire)
         cadence = CadenceConfig(
             kind="drift" if tc.freq_schedule == "drift" else "static",
             target=tc.drift_target, k_cap=self.freq.target_period,
@@ -377,6 +385,22 @@ class Trainer:
         active = max(0, hi - lo)
         return [(True, active), (False, e - active)]
 
+    def _make_score_sharding(self):
+        """One row block per device of the run, or None (with the
+        reference's warnings) when that is fewer than two blocks or the
+        blocks do not divide the store."""
+        ss = sharding.score_store_sharding(
+            sharding.local_devices(self.device))
+        if ss is None:
+            warnings.warn("--shard-scores: single device, store stays "
+                          "replicated", stacklevel=2)
+        elif self.n_train % ss.n_shards != 0:
+            warnings.warn(f"--shard-scores: n_train={self.n_train} not "
+                          f"divisible by {ss.n_shards} devices, store "
+                          f"stays replicated", stacklevel=2)
+            return None
+        return ss
+
     def _place(self, host: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One host batch on the trainer's device, ready to read."""
         return self._placer.ready(self._placer(host))
@@ -421,7 +445,8 @@ class Trainer:
                 self._grow_store(int(growth[-1][1]) - self.n_train)
         self.state = self.engine.load_state_dict(
             self.state, self.ckpt.restore(
-                self.engine.state_dict(self.state), step))
+                self.engine.state_dict(self.state), step,
+                partition=self.store.checkpoint_partition()))
         self.global_step = md.get("global_step", step)
         self.start_epoch = md.get("epoch", 0)
         self.bp_samples_total = md.get("bp_samples_total", 0.0)
@@ -471,7 +496,8 @@ class Trainer:
         if self.prev_epoch_losses is not None:
             extras["prev_epoch_losses"] = self.prev_epoch_losses
         save = self.ckpt.save if final else self.ckpt.save_async
-        save(tree, self.global_step, md, extras)
+        save(tree, self.global_step, md, extras,
+             partition=self.store.checkpoint_partition())
 
     def _prune_for_epoch(self, epoch: int) -> None:
         """Set-level selection before ``epoch``, gated by the engine's
@@ -611,8 +637,7 @@ class Trainer:
             "scoring_steps_total": self.scoring_steps_total,
             "wall_time": time.time() - t_start,
             "straggler_reports": len(self.straggler.reports),
-            # the port has no sharded store yet
-            "score_store_sharded": False,
+            "score_store_sharded": self.score_sharding is not None,
             "device": str(self.device),
             "prune_events": self.prune_events,
             "epoch_log": self.epoch_log,
@@ -731,10 +756,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--grad-compression", action="store_true",
                     help="int8 quantize -> dequantize of the gradients "
                     "with error feedback before each optimizer step")
-    # flags of the JAX CLI that the port does not run yet: accepted, and
-    # they raise "not ported yet" unless left at their defaults
-    ap.add_argument("--shard-scores", action="store_true")
-    ap.add_argument("--quant-wire", action="store_true")
+    ap.add_argument("--shard-scores", action="store_true",
+                    help="the score store in row blocks, one per device of "
+                    "the run (replicated, with a warning, on one device)")
+    ap.add_argument("--quant-wire", action="store_true",
+                    help="int8 payloads on the cross-block gather and "
+                    "selection of the sharded int8 store (lossy by one "
+                    "grid step)")
     return ap
 
 

@@ -20,8 +20,9 @@ tokens into G groups of their own capacity.
 
 Ties among router logits go to the lower expert index, as
 ``jax.lax.top_k`` orders them: the top k come from a stable descending
-sort. The expert products are batched (bmm), so the "selective" remat
-policy recomputes them, as ``dots_with_no_batch_dims_saveable`` does.
+sort (``core.selection.top_k``). The expert products are batched (bmm),
+so the "selective" remat policy recomputes them, as
+``dots_with_no_batch_dims_saveable`` does.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core.selection import top_k as _top_k
 from .layers import Params, winit
 
 
@@ -46,13 +48,6 @@ def capacity(n_tokens: int, n_experts: int, top_k: int,
     c = int(n_tokens * top_k * capacity_factor / n_experts)
     c = max(multiple_of, (c + multiple_of - 1) // multiple_of * multiple_of)
     return min(c, n_tokens)
-
-
-def _top_k(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(values, indices) of the k largest along the last dim, ties to the
-    lower index (``jax.lax.top_k``'s order)."""
-    idx = torch.sort(logits, dim=-1, descending=True, stable=True)[1][..., :k]
-    return logits.gather(-1, idx), idx
 
 
 def route(logits: torch.Tensor, k: int, C: int

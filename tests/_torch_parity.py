@@ -28,6 +28,25 @@ from repro_torch.optim.schedule import get_schedule as t_get_schedule
 
 B, b, N, S = 16, 4, 64, 32
 ATOL, RTOL = 1e-5, 1e-4
+# LLVM's backend optimisations off: the same HLO (the arithmetic), a
+# quicker compile
+FAST = {"xla_backend_optimization_level": 0,
+        "xla_llvm_disable_expensive_passes": True}
+
+
+def fast_jit(fn):
+    """``jax.jit(fn)`` compiled with ``FAST``, one executable per argument
+    signature (tree structure and abstract values)."""
+    jitted, compiled = jax.jit(fn), {}
+
+    def call(*args):
+        leaves, tree = jax.tree.flatten(args)
+        key = (tree, tuple(str(jax.typeof(x)) for x in leaves))
+        if key not in compiled:
+            compiled[key] = jitted.lower(*args).compile(
+                compiler_options=FAST)
+        return compiled[key](*args)
+    return call
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -145,3 +164,48 @@ def assert_state_close(tstate, jstate):
     np.testing.assert_array_equal(tstate.scores.seen.numpy(),
                                   np.asarray(jstate.scores.seen))
     assert_cadence_close(tstate.cadence, jstate.cadence)
+
+
+class MemoryKV:
+    """The key-value client the reference's ``HostComm`` reads
+    (``repro/distributed/hostcomm.py``), in memory, for ``n`` threads
+    standing in for processes."""
+
+    def __init__(self, n):
+        import threading
+        self._threading = threading
+        self._d, self._cv, self._bars, self._n = \
+            {}, threading.Condition(), {}, n
+
+    def key_value_set_bytes(self, k, v):
+        with self._cv:
+            self._d[k] = v
+            self._cv.notify_all()
+
+    def blocking_key_value_get_bytes(self, k, timeout_ms):
+        with self._cv:
+            assert self._cv.wait_for(lambda: k in self._d, timeout_ms / 1e3)
+            return self._d[k]
+
+    def key_value_delete(self, k):
+        with self._cv:
+            self._d.pop(k, None)
+
+    def wait_at_barrier(self, k, timeout_ms):
+        with self._cv:
+            bar = self._bars.setdefault(k, self._threading.Barrier(self._n))
+        bar.wait(timeout_ms / 1e3)
+
+
+def in_threads(fn, n=2):
+    """[fn(0), ..., fn(n - 1)], each on its own thread, joined."""
+    import threading
+    out = [None] * n
+    ts = [threading.Thread(target=lambda p=p: out.__setitem__(p, fn(p)))
+          for p in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(60)
+    assert not any(t.is_alive() for t in ts)
+    return out

@@ -100,9 +100,11 @@ def test_port_imports_neither_jax_nor_repro():
         "       'repro_torch.configs.arctic_480b',\n"
         "       'repro_torch.configs.llama32_vision_11b',\n"
         "       'repro_torch.configs.seamless_m4t_large_v2',\n"
-        "       'repro_torch.distributed.fault_tolerance'}\n"
+        "       'repro_torch.distributed.fault_tolerance',\n"
+        "       'repro_torch.distributed.hostcomm',\n"
+        "       'repro_torch.distributed.sharding'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
-        "assert len(names) >= 65, names\n"
+        "assert len(names) >= 67, names\n"
         "print('OK', len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -12,6 +12,7 @@ import jax
 import numpy as np
 import pytest
 
+from _torch_parity import fast_jit
 from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from _torch_parity import (assert_cadence_close, assert_state_close,
                            host_batches, jax_batch, jax_gumbel, make_pair,
@@ -76,7 +77,7 @@ def test_make_schedule_opens_cap_at_k1(kind):
 def test_drift_scheduled_steps_match_jax():
     cadence = dict(kind="drift", k_cap=8)
     jeng, jstate, teng, tstate, rng = make_pair(cadence=cadence)
-    jstep = jax.jit(jeng.scheduled_step)
+    jstep = fast_jit(jeng.scheduled_step)
     periods, lasts, scored = [], [], []
     for host in host_batches(rng, 6):
         gumbel = jax_gumbel(jstate)

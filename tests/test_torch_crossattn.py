@@ -198,7 +198,8 @@ def _jax_run(arch):
             {k: jnp.asarray(v) for k, v in probe.items()})
     # LLVM's backend optimisations off: the HLO (the arithmetic) is the same
     state, out = jax.jit(run).lower(*args).compile(
-        compiler_options={"xla_backend_optimization_level": 0})(*args)
+        compiler_options={"xla_backend_optimization_level": 0,
+                          "xla_llvm_disable_expensive_passes": True})(*args)
     return cfg, state, jax.device_get(out)
 
 

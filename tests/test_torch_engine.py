@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import fast_jit
 from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.configs.registry import get_smoke_config
 from repro.core.engine import ESConfig, ESEngine, init_train_state
@@ -79,7 +80,7 @@ def test_es_step_matches_jax(method):
         want_idx = gumbel_topk_select(jax.random.split(state.rng)[1], wj, b)
     else:
         want_idx = jax.lax.top_k(wj, b)[1]
-    new, _ = jax.jit(eng.es_step)(state, jbatch)
+    new, _ = fast_jit(eng.es_step)(state, jbatch)
 
     tcfg = ModelConfig(**dataclasses.asdict(cfg))
     t_es = tengine.ESConfig(method=method, minibatch=b, n_train=N)

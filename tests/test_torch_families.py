@@ -42,7 +42,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import _flat, one_torch_thread  # noqa: F401
+from _torch_parity import _flat, fast_jit, one_torch_thread  # noqa: F401
 from repro.configs.registry import get_config as jax_get_config
 from repro.configs.registry import get_smoke_config
 from repro.configs.registry import list_archs as jax_list_archs
@@ -313,7 +313,7 @@ def test_moe_packed_step_matches_jax():
         params=params_from_jax(jax.device_get(state.params)))
     tstate.scores.s.fill_(1.0)
     tstate.scores.w.fill_(1.0)
-    new, jm = jax.jit(eng.packed_step)(state, {k: jnp.asarray(v)
+    new, jm = fast_jit(eng.packed_step)(state, {k: jnp.asarray(v)
                                                for k, v in host.items()})
     tstate, m = teng.packed_step(tstate, {k: torch.from_numpy(v.copy())
                                           for k, v in host.items()},

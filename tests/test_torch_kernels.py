@@ -12,6 +12,7 @@ plain version, which is what these tests drive. Tolerances are the JAX
 kernel tests' (tests/test_kernels.py): 1e-5 in float32 and 5e-2 in bf16
 for xent, 2e-5 / 2e-2 for flash attention, 1e-6 for the score update.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,9 +81,12 @@ def test_xent_plain_matches_pallas_and_oracle(M, V, dtype):
     w_j, w_t = _pair(rng.normal(size=(V, d)) * 0.1, dtype)
     labels = rng.integers(0, V, M).astype(np.int32)
     got = fused_xent(h_t, w_t, torch.from_numpy(labels))
-    kern = per_token_xent_fused(h_j, w_j.T, jnp.asarray(labels),
-                                block_m=128, interpret=True)
-    oracle = jax_xent_ref(h_j, w_j.T, jnp.asarray(labels))
+    # the interpreted kernel under one jit (eagerly, each of its ops
+    # would compile on its own)
+    kern = jax.jit(lambda h, w, lab: per_token_xent_fused(
+        h, w, lab, block_m=128, interpret=True))(h_j, w_j.T,
+                                                 jnp.asarray(labels))
+    oracle = jax.jit(jax_xent_ref)(h_j, w_j.T, jnp.asarray(labels))
     tol = 1e-5 if dtype == "float32" else 5e-2
     assert got.dtype == torch.float32 and got.shape == (M,)
     np.testing.assert_allclose(_np(got), _np(kern), atol=tol, rtol=tol)
@@ -99,11 +103,11 @@ def test_xent_per_sample_masking():
     labels[1, :] = -1                              # fully masked row
     ps, mean = per_sample_xent_fused(torch.from_numpy(h), torch.from_numpy(w),
                                      torch.from_numpy(labels))
-    ps_k, mean_k = jax_ps_xent(jnp.asarray(h), jnp.asarray(w).T,
-                               jnp.asarray(labels), interpret=True)
-    ps_x, _ = jax_per_sample_xent(jnp.asarray(h), jnp.asarray(w).T,
-                                  jnp.asarray(labels), ctx=ShardCtx(),
-                                  seq_chunk=0)
+    ps_k, mean_k = jax.jit(lambda *a: jax_ps_xent(*a, interpret=True))(
+        jnp.asarray(h), jnp.asarray(w).T, jnp.asarray(labels))
+    ps_x, _ = jax.jit(lambda *a: jax_per_sample_xent(
+        *a, ctx=ShardCtx(), seq_chunk=0))(jnp.asarray(h), jnp.asarray(w).T,
+                                          jnp.asarray(labels))
     np.testing.assert_allclose(_np(ps), _np(ps_k), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(_np(ps), _np(ps_x), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(float(mean), float(mean_k), atol=1e-5)
@@ -161,11 +165,11 @@ def test_flash_plain_matches_pallas(causal):
                for _ in range(3))
     got = gqa_flash_attention(*(torch.from_numpy(x)[:, :, None]
                                 for x in (q, k, v)), causal=causal)[:, :, 0]
-    kern = flash_attention(*(jnp.asarray(x) for x in (q, k, v)),
-                           block_q=64, block_k=64, causal=causal,
-                           interpret=True)
-    oracle = attention_ref(*(jnp.asarray(x) for x in (q, k, v)),
-                           causal=causal)
+    kern = jax.jit(lambda *a: flash_attention(
+        *a, block_q=64, block_k=64, causal=causal, interpret=True))(
+            *(jnp.asarray(x) for x in (q, k, v)))
+    oracle = jax.jit(lambda *a: attention_ref(*a, causal=causal))(
+        *(jnp.asarray(x) for x in (q, k, v)))
     np.testing.assert_allclose(_np(got), _np(kern), atol=2e-5)
     np.testing.assert_allclose(_np(got), _np(oracle), atol=2e-5)
 
@@ -178,7 +182,8 @@ def test_flash_plain_gqa_matches_pallas_wrapper(dtype):
     k_j, k_t = _pair(rng.normal(size=(B, S, K, hd)), dtype)
     v_j, v_t = _pair(rng.normal(size=(B, S, K, hd)), dtype)
     got = gqa_flash_attention(q_t, k_t, v_t)
-    kern = jax_gqa(q_j, k_j, v_j, block_q=64, block_k=64, interpret=True)
+    kern = jax.jit(lambda *a: jax_gqa(*a, block_q=64, block_k=64,
+                                      interpret=True))(q_j, k_j, v_j)
     tol = 2e-5 if dtype == "float32" else 2e-2
     assert got.dtype == TDT[dtype] and got.shape == (B, S, H, hd)
     np.testing.assert_allclose(_np(got), _np(kern), atol=tol)

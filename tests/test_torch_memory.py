@@ -87,9 +87,10 @@ def test_chunked_attention_matches_jax(packed):
         rows = _packed_rows(B)
         extra = {"positions": rows["positions"],
                  "segment_ids": rows["segment_ids"]}
-    want = jax_mha({k: jnp.asarray(v) for k, v in layer0.items()},
-                   jnp.asarray(x), ctx=ShardCtx(), chunk_q=CHUNK,
-                   **{k: jnp.asarray(v) for k, v in extra.items()}, **kw)
+    want = jax.jit(lambda p, xx, e: jax_mha(p, xx, ctx=ShardCtx(),
+                                            chunk_q=CHUNK, **e, **kw))(
+        {k: jnp.asarray(v) for k, v in layer0.items()}, jnp.asarray(x),
+        {k: jnp.asarray(v) for k, v in extra.items()})
     tp = {k: torch.from_numpy(v) for k, v in layer0.items()}
     te = {k: torch.from_numpy(v) for k, v in extra.items()}
     got = mha(tp, torch.from_numpy(x), chunk_q=CHUNK, **te, **kw)
@@ -118,15 +119,16 @@ def test_chunked_xent_matches_jax(form):
     jh, jw, jl, js = map(jnp.asarray, (h, w, labels, seg))
     if form == "per_sample":
         got, got_mean = per_sample_xent(th, tw, tl, seq_chunk=CHUNK)
-        want, want_mean = jax_per_sample_xent(jh, jw, jl, ctx=ShardCtx(),
-                                              seq_chunk=CHUNK)
+        want, want_mean = jax.jit(lambda *a: jax_per_sample_xent(
+            *a, ctx=ShardCtx(), seq_chunk=CHUNK))(jh, jw, jl)
         np.testing.assert_allclose(float(got_mean), float(want_mean),
                                    atol=1e-5)
     else:
         got, counts = per_segment_xent(th, tw, tl, ts, max_segments=4,
                                        seq_chunk=CHUNK)
-        want, want_c = jax_per_segment_xent(jh, jw, jl, js, max_segments=4,
-                                            ctx=ShardCtx(), seq_chunk=CHUNK)
+        want, want_c = jax.jit(lambda *a: jax_per_segment_xent(
+            *a, max_segments=4, ctx=ShardCtx(), seq_chunk=CHUNK))(
+                jh, jw, jl, js)
         np.testing.assert_array_equal(counts.numpy(), np.asarray(want_c))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
@@ -155,8 +157,8 @@ def test_remat_loss_and_grads_match_jax(policy):
     jparams = _jax_params(cfg)
     batch = _lm_batch()
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    want_loss, want_g = jax.value_and_grad(lambda p: jax_lm_loss(
-        cfg, p, jb, ShardCtx(), seq_chunk=CHUNK)[1])(jparams)
+    want_loss, want_g = jax.jit(jax.value_and_grad(lambda p: jax_lm_loss(
+        cfg, p, jb, ShardCtx(), seq_chunk=CHUNK)[1]))(jparams)
     loss, grads = _port_loss_and_grads(cfg, jparams, batch)
     np.testing.assert_allclose(float(loss), float(want_loss), atol=1e-4,
                                rtol=1e-4)

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import fast_jit
 from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.configs.registry import get_smoke_config
 from repro.core.engine import ESConfig, ESEngine, init_train_state
@@ -135,11 +136,12 @@ def test_segsum_plain_matches_pallas_and_oracle(B, S, M):
     mask = rng.random((B, S)) < 0.8
     sums, counts = segment_sum(torch.from_numpy(nll), torch.from_numpy(seg),
                                torch.from_numpy(mask), max_segments=M)
-    kern = segment_sum_fused(jnp.asarray(nll), jnp.asarray(seg),
-                             jnp.asarray(mask), max_segments=M,
-                             interpret=True)
-    oracle = jax_segsum_ref(jnp.asarray(nll), jnp.asarray(seg),
-                            jnp.asarray(mask), max_segments=M)
+    args = (jnp.asarray(nll), jnp.asarray(seg), jnp.asarray(mask))
+    # the interpreted kernel under one jit (eagerly, each of its ops
+    # would compile on its own)
+    kern = jax.jit(lambda *a: segment_sum_fused(*a, max_segments=M,
+                                                interpret=True))(*args)
+    oracle = jax.jit(lambda *a: jax_segsum_ref(*a, max_segments=M))(*args)
     assert sums.shape == counts.shape == (B, M)
     for ks, kc in (kern, oracle):
         np.testing.assert_array_equal(counts.numpy(), np.asarray(kc))
@@ -286,7 +288,7 @@ def test_packed_step_matches_jax():
     params0 = jax.device_get(state.params)
     gumbel = np.asarray(jax.random.gumbel(jax.random.split(state.rng)[1],
                                           (B * M,), jnp.float32))
-    new, jm = jax.jit(eng.packed_step)(state, {k: jnp.asarray(v)
+    new, jm = fast_jit(eng.packed_step)(state, {k: jnp.asarray(v)
                                                for k, v in host.items()})
 
     tcfg = ModelConfig(**dataclasses.asdict(cfg))

@@ -13,6 +13,7 @@ import jax
 import numpy as np
 import torch
 
+from _torch_parity import fast_jit
 from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from _torch_parity import (ATOL, RTOL, B, assert_state_close, host_batches,
                            jax_batch, jax_gumbel, make_pair, torch_batch)
@@ -34,13 +35,13 @@ def _assert_pending_close(tstate, jstate):
 def test_prime_pipelined_flush_match_jax():
     jeng, jstate, teng, tstate, rng = make_pair()
     hosts = host_batches(rng, 4)
-    jstate = jax.jit(jeng.prime_step)(jstate, jax_batch(hosts[0]))
+    jstate = fast_jit(jeng.prime_step)(jstate, jax_batch(hosts[0]))
     tstate = teng.prime_step(tstate, torch_batch(hosts[0]))
     assert tstate.pending_w.shape == (B,)
     _assert_pending_close(tstate, jstate)
     assert_state_close(tstate, jstate)
     assert tstate.cadence.last_scored == -1
-    jpipe = jax.jit(jeng.pipelined_step)
+    jpipe = fast_jit(jeng.pipelined_step)
     for cur, nxt in zip(hosts[:-1], hosts[1:]):
         want_sel, gumbel = _want_selected(jstate), jax_gumbel(jstate)
         jstate, jm = jpipe(jstate, (jax_batch(cur), jax_batch(nxt)))
@@ -53,7 +54,7 @@ def test_prime_pipelined_flush_match_jax():
         _assert_pending_close(tstate, jstate)
         assert_state_close(tstate, jstate)
     want_sel, gumbel = _want_selected(jstate), jax_gumbel(jstate)
-    jstate, jm = jax.jit(jeng.flush_step)(jstate, jax_batch(hosts[-1]))
+    jstate, jm = fast_jit(jeng.flush_step)(jstate, jax_batch(hosts[-1]))
     tstate, tm = teng.flush_step(tstate, torch_batch(hosts[-1]),
                                  gumbel=gumbel)
     assert set(tm["selected"].tolist()) == want_sel

@@ -88,10 +88,15 @@ def test_make_store_and_init_leaf_match_jax():
     st = tscores.make_store(None, quantize=True, block=64)
     assert isinstance(st, tscores.QuantizedStore)
     assert isinstance(tscores.make_store(None), tscores.ReplicatedStore)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tscores.make_store(object(), quantize=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tscores.make_store(None, quantize=True, wire=True)
+    # every combination builds: over row blocks (its codes and scales the
+    # replicated leaf's, block by block), and with the int8 wire
+    two = tscores.ScoreSharding(["cpu", "cpu"])
+    sharded = tscores.make_store(two, quantize=True, block=64, wire=True)
+    assert isinstance(sharded.inner, tscores.ShardedStore) and sharded.wire
+    assert tscores.make_store(None, quantize=True, wire=True).wire
+    blocks, whole = sharded.init_leaf(512), st.init_leaf(512, "cpu")
+    for f in ("s_q", "seen_q", "s_scale"):
+        assert torch.equal(torch.cat(getattr(blocks, f)), getattr(whole, f))
     for n, block in ((512, 64), (100, 1024)):
         got = st.init_leaf(n, "cpu") if block == 64 else \
             tscores.make_store(None, quantize=True,

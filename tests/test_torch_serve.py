@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import fast_jit
 from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from repro.configs.registry import get_smoke_config
 from repro.launch.serve import Server as JaxServer
@@ -68,8 +69,8 @@ def test_prefill_and_decode_match_jax(arch, chunk_q):
     jcache = jmodel.init_cache(cfg, B, P + T, dtype=jnp.float32)
     tcache = tmodel.init_cache(tcfg, B, P + T, dtype=torch.float32,
                                device="cpu")
-    jprefill = jax.jit(lambda p, b, c: jmodel.prefill(cfg, p, b, c, CTX))
-    jdecode = jax.jit(lambda p, t, c, pos: jmodel.decode_step(
+    jprefill = fast_jit(lambda p, b, c: jmodel.prefill(cfg, p, b, c, CTX))
+    jdecode = fast_jit(lambda p, t, c, pos: jmodel.decode_step(
         cfg, p, t, c, pos, CTX))
     want, jcache = jprefill(params, {"tokens": jnp.asarray(toks[:, :P])},
                             jcache)

@@ -29,7 +29,8 @@ CTX = ShardCtx()
 ATOL, RTOL = 1e-5, 1e-4
 # LLVM's backend optimisations off for the references' jits: a third of
 # the compile time, the same HLO (the arithmetic)
-FAST = {"xla_backend_optimization_level": 0}
+FAST = {"xla_backend_optimization_level": 0,
+        "xla_llvm_disable_expensive_passes": True}
 
 
 def _jit(fn, *args):

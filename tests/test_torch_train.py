@@ -10,6 +10,7 @@ tolerance is 1e-3 relative: per-step losses agree to ~1e-6 at step 1, and
 """
 import dataclasses
 import json
+import warnings
 
 import jax
 import numpy as np
@@ -21,6 +22,7 @@ from repro.launch.train import Trainer as JaxTrainer
 from repro.launch.train import TrainerConfig as JaxTrainerConfig
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import ModelConfig
+from repro_torch.core import scores as tscores
 from repro_torch.launch import train as ttrain
 
 COMMON = dict(arch="qwen1.5-0.5b", smoke=True, meta_batch=16, minibatch=4,
@@ -129,7 +131,8 @@ def test_default_device_raises_without_gpu():
 # (tests/test_torch_compression.py, tests/test_torch_families.py)
 # the trainer refuses vlm and encdec with the reference's reasons: no
 # source makes their stubs (they train through the engine,
-# tests/test_torch_crossattn.py)
+# tests/test_torch_crossattn.py); --shard-scores and --quant-wire are
+# ported (tests/test_torch_sharded_scores.py)
 @pytest.mark.parametrize("flags", [["--shard-scores", "--pipelined"],
                                    ["--shard-scores"],
                                    ["--quant-scores", "--quant-wire"],
@@ -143,6 +146,26 @@ def test_unported_flags_raise(flags):
     if flags[-1] in why:
         with pytest.raises(ValueError, match=why[flags[-1]]):
             ttrain.main(["--device", "cpu", *flags])
+    elif "--shard-scores" in flags or "--quant-wire" in flags:
+        # ported: the CPU run has one device, so --shard-scores warns as
+        # the reference does and keeps the store replicated, and the wire
+        # of a replicated int8 store has no cross-block leg
+        # (tests/test_torch_sharded_scores.py runs them over 4 blocks)
+        args = vars(ttrain.build_parser().parse_args(
+            ["--device", "cpu", "--arch", "qwen1.5-0.5b", *flags]))
+        tc = ttrain.TrainerConfig(**{f.name: args[f.name] for f in
+                                     dataclasses.fields(ttrain.TrainerConfig)
+                                     if f.name in args})
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tr = ttrain.Trainer(tc)
+        tr.preempt.uninstall()
+        assert tr.score_sharding is None
+        assert any("single device, store stays replicated" in str(w.message)
+                   for w in caught) == ("--shard-scores" in flags)
+        inner = getattr(tr.store, "inner", tr.store)
+        assert isinstance(inner, tscores.ReplicatedStore)
+        assert tr.store is inner or tr.store.wire == ("--quant-wire" in flags)
     else:
         with pytest.raises(NotImplementedError, match="not ported"):
             ttrain.main(["--device", "cpu", *flags])
