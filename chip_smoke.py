@@ -122,7 +122,23 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    stubs. Every ``serve*`` path with attention also runs a third prefill
    with its attention through SDPA in bf16: the kernel prefill's logits
    are held within 5e-2 of the plain prefill's, or, past it, within 1.25
-   times the SDPA prefill's gap (``SDPA_SLACK``);
+   times the SDPA prefill's gap (``SDPA_SLACK``); then phase ``dryrun``:
+   the dry run (``repro_torch.launch.dryrun``) predicts each of its cells
+   on the ``meta`` device, and the card runs the same step (a warm-up
+   step, then one under the same cost counter, with the launch counts
+   set to 0 just before and read just after, then the profiler's device
+   time of one more): D1, full-width qwen1.5-0.5b's ``es_step`` at S1's
+   traffic (S 512, meta-batch 32, minibatch 8: 24 flash launches, one
+   xent call, one score update); D2, SV's prefill (batch 8, prompts of
+   512: 24 flash) and one decode step on its cache of 576; D3,
+   mamba2-780m x ``long_500k`` (one decode step, batch 1, cache 524,288)
+   and zamba2-2.7b's when the dry run says it fits one card, all at full
+   width and depth. Each fails unless the card's FLOP count equals the
+   meta count exactly, the measured peak (``max_memory_allocated`` after
+   ``reset_peak_memory_stats``) is within 5 % or 256 MiB of the
+   predicted one, whichever is larger, the roofline share (the
+   predicted ``step_s_lower_bound`` over the device time) is at most
+   1.05, and the step's losses or logits are finite;
 7. ``legs``: where a step's time goes (serial-ES legs and a profiled step;
    the packed step's legs and the segment-sum kernels' launches and device
    time inside its forward + backward; the int8 store update against the
@@ -2776,6 +2792,141 @@ def phase_sharded(name: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase dryrun: the dry run's predictions held to the card's measured step
+# ---------------------------------------------------------------------------
+
+MiB = 1 << 20
+PEAK_SLACK = (0.05, 256 * MiB)   # peak within 5 % or 256 MiB, the larger
+SHARE_MAX = 1.05                 # bound / device time above it: miscounted
+
+
+def dryrun_cells() -> dict:
+    """name -> (arch, ShapeConfig, minibatch, launches of the measured
+    step): D1 (S1's traffic through ``es_step``), D2 (SV's prefill and
+    one decode step on its cache of 512 + 64), D3 (the reference's
+    mamba2-780m x long_500k; zamba2-2.7b's when the dry run says it
+    fits), all at full width and depth."""
+    from repro_torch.configs.base import LONG_500K, ShapeConfig
+    P = SERVE_P + SERVE_GEN
+    return {
+        "D1": ("qwen1.5-0.5b", ShapeConfig("s1", 512, 32, "train"), 8,
+               {"gqa_flash_attention": 24, "fused_xent": 1,
+                "fused_score_update": 1}),
+        "D2_prefill": ("qwen1.5-0.5b", ShapeConfig("sv_prefill", SERVE_P,
+                                                   SERVE_B, "prefill"),
+                       None, {"gqa_flash_attention": 24}),
+        "D2_decode": ("qwen1.5-0.5b", ShapeConfig("sv_decode", P, SERVE_B,
+                                                  "decode"), None, {}),
+        "D3": ("mamba2-780m", LONG_500K, None, {}),
+        "D3_zamba2": ("zamba2-2.7b", LONG_500K, None, {}),
+    }
+
+
+def _finite(out, kind: str) -> bool:
+    """The step's result finite: a train step's losses, a prefill's or
+    decode step's logits (not the cache it also returns)."""
+    got = [out[1]["loss"], out[1]["sel_loss"]] if kind == "train" \
+        else [out[0]]
+    return all(bool(torch.isfinite(t).all()) for t in got)
+
+
+def dryrun_cell(name: str, arch: str, shape, minibatch, unit: dict,
+                wrappers: dict) -> dict:
+    """Predict one cell on ``meta`` with ``run_cell``'s machinery, then
+    run the same step on the card: a warm-up step, then one step under
+    the same counter (every launch count 0 just before, read just after;
+    the peak reset before, read after), then the profiler's device time
+    of one more."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cost import CostCounter, roofline_terms
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    pred = dryrun.count(dryrun.prepare(cfg, shape, minibatch=minibatch))
+    trace_s = time.perf_counter() - t0
+    row = {"cell": name, "arch": arch, "shape": list(
+        (shape.name, shape.seq_len, shape.global_batch, shape.kind)),
+        "minibatch": minibatch, "trace_s": round(trace_s, 3),
+        "predicted": {k: pred[k] for k in ("flops", "flops_by_dtype",
+                                           "bytes", "memory",
+                                           "fits_one_card", "roofline")}}
+    if not pred["fits_one_card"]:
+        row["skipped"] = "the dry run says it does not fit one card"
+        return row
+    torch.cuda.empty_cache()
+    prep = dryrun.prepare(cfg, shape, device="cuda", minibatch=minibatch)
+    prep.step()                                # warm-up
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with CostCounter() as counter:
+        out = prep.step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    finite = _finite(out, shape.kind)
+    del out
+    device_ms = device_trace(prep.step, reps=1)["device_ms"]
+    real = roofline_terms(flops_by_dtype=counter.flops,
+                          bytes_per_chip=counter.bytes)
+    want_peak = pred["memory"]["peak_bytes"]
+    slack = max(PEAK_SLACK[0] * want_peak, PEAK_SLACK[1])
+    share = pred["roofline"]["step_s_lower_bound"] * 1e3 / device_ms
+    row.update({
+        "measured": {"flops": counter.total_flops,
+                     "flops_by_dtype": {str(k).replace("torch.", ""): v
+                                        for k, v in counter.flops.items()},
+                     "bytes": counter.bytes,
+                     "peak_bytes": peak,
+                     "peak_minus_predicted": peak - want_peak,
+                     "device_ms": device_ms,
+                     "step_s_lower_bound": real["step_s_lower_bound"]},
+        "roofline_share": share, "launches": launches,
+        "card": smi_line()})
+    emit({"phase": "dryrun", **row})
+    if counter.total_flops != pred["flops"] or \
+            row["measured"]["flops_by_dtype"] != pred["flops_by_dtype"]:
+        raise AssertionError(f"{name}: the card's step counts "
+                             f"{counter.total_flops} FLOPs, the meta trace "
+                             f"{pred['flops']}")
+    if abs(peak - want_peak) > slack:
+        raise AssertionError(f"{name}: peak {peak} B against the predicted "
+                             f"{want_peak} B (slack {slack:.0f})")
+    if share > SHARE_MAX:
+        raise AssertionError(f"{name}: roofline share {share:.3f} > "
+                             f"{SHARE_MAX}: the bound miscounts the step")
+    if not finite:
+        raise AssertionError(f"{name}: non-finite outputs")
+    for k in wrappers:
+        if launches[k] != unit.get(k, 0):
+            raise AssertionError(f"{name}: {k} launched {launches[k]} "
+                                 f"times, expected {unit.get(k, 0)}")
+    del prep
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_dryrun() -> dict:
+    """The dry run (``repro_torch.launch.dryrun``) on the card: each cell
+    of ``dryrun_cells`` predicted on ``meta``, then measured. Fails when
+    the card's FLOP count is not the meta count, the measured peak is off
+    by more than 5 % or 256 MiB (the larger), a roofline share exceeds
+    1.05, an output is not finite or a launch count is off. Returns the
+    measured steps' launches."""
+    wrappers = _wrappers()
+    launches = {k: 0 for k in wrappers}
+    for name, (arch, shape, mb, unit) in dryrun_cells().items():
+        row = dryrun_cell(name, arch, shape, mb, unit, wrappers)
+        if "skipped" in row:
+            emit({"phase": "dryrun", **row})
+            continue
+        for k, v in row["launches"].items():
+            launches[k] += v
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 7: where one step's time goes
 # ---------------------------------------------------------------------------
 
@@ -4010,7 +4161,7 @@ def main() -> None:
             "serve_moe": phase_serve_moe,
             **{p: lambda p=p: phase_engine(p) for p in ENGINE_PATHS},
             "serve_vlm": phase_serve_vlm,
-            "serve_encdec": phase_serve_encdec}
+            "serve_encdec": phase_serve_encdec, "dryrun": phase_dryrun}
     for name, run in runs.items():
         for k, v in timed(name, run).items():
             launches[k] = launches.get(k, 0) + v

@@ -1,11 +1,13 @@
 """Model configuration of the port: a copy of ``repro/configs/base.py:
 ModelConfig``, field for field, so that a JAX config converts with
-``ModelConfig(**dataclasses.asdict(jax_cfg))``. The port runs all six
+``ModelConfig(**dataclasses.asdict(jax_cfg))``, and of its shape cells
+(``ShapeConfig``, the dry run's input shapes). The port runs all six
 families: dense, moe, ssm, hybrid, vlm and encdec.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,3 +139,47 @@ class ModelConfig:
         total += v * d * (1 if self.tie_embeddings else 2)
         return total
 
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top-k experts only)."""
+        if self.num_experts == 0:
+            return self.n_params()
+        d, f = self.d_model, self.d_ff
+        dense_moe = self.num_experts * 3 * d * f
+        active_moe = self.num_experts_per_tok * 3 * d * f
+        return self.n_params() - self.num_layers * (dense_moe - active_moe)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell: what the dry run traces."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                       LONG_500K)
+
+
+def shape_by_name(name: str) -> ShapeConfig:
+    for s in ALL_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(f"unknown shape {name!r}; have "
+                   f"{[s.name for s in ALL_SHAPES]}")
+
+
+def cell_is_applicable(cfg: ModelConfig, shape: ShapeConfig
+                       ) -> Tuple[bool, str]:
+    """Whether a (arch x shape) dry-run cell runs, and why not if
+    skipped."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("long_500k requires sub-quadratic attention "
+                       "(ssm/hybrid only)")
+    return True, ""

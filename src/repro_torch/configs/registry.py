@@ -7,7 +7,7 @@ published hyper-parameters and smoke config.
 from __future__ import annotations
 
 import importlib
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 from .base import ModelConfig
 
@@ -41,3 +41,7 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).SMOKE
+
+
+def all_configs() -> List[Tuple[str, ModelConfig]]:
+    return [(n, get_config(n)) for n in list_archs()]

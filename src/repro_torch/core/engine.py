@@ -132,7 +132,7 @@ class TrainState:
     params: Dict
     opt: OptState
     scores: Scores
-    generator: torch.Generator    # selection noise
+    generator: Optional[torch.Generator]  # selection noise (None on meta)
     cadence: CadenceState
     pending_w: torch.Tensor       # (B,) pipelined ES: carried weights
     grad_err: Optional[Dict] = None  # error-feedback residuals (f32)
@@ -151,9 +151,8 @@ def init_train_state(model_cfg: ModelConfig, es_cfg: ESConfig,
     compresses its gradients."""
     store = store if store is not None else make_store()
     if params is None:
-        pgen = torch.Generator(device=device).manual_seed(seed)
-        params = init_lm(model_cfg, pgen, device)
-    sel_gen = torch.Generator(device=device).manual_seed(seed + 1)
+        params = init_lm(model_cfg, _generator(device, seed), device)
+    sel_gen = _generator(device, seed + 1)
     return TrainState(params=params, opt=init_opt_state(opt_cfg, params),
                       scores=store.init_leaf(es_cfg.n_train, device),
                       generator=sel_gen, cadence=init_cadence(device),
@@ -161,6 +160,15 @@ def init_train_state(model_cfg: ModelConfig, es_cfg: ESConfig,
                                            device=device),
                       grad_err=ErrorFeedbackState.init(params)
                       if opt_cfg.compress_grads else None)
+
+
+def _generator(device, seed: int) -> Optional[torch.Generator]:
+    """A generator on ``device`` seeded with ``seed``; None on ``meta``,
+    which has no generator and whose draws hold no data (the dry run's
+    trace, ``launch/dryrun.py``)."""
+    if torch.device(device).type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def _gather_batch(batch: Batch, idx: torch.Tensor) -> Batch:

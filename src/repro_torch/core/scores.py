@@ -1,7 +1,8 @@
 """Evolved Sampling score state, paper Eq. (3.1) (counterpart of
 ``repro/core/scores.py``: ``ScoreSharding`` :69-115, the store protocol
 :178-268, ``ReplicatedStore`` :271-325, ``ShardedStore`` :328-641, the
-int8 ``QuantizedStore`` :644-1309 and ``make_store`` :1312-1325).
+int8 ``QuantizedStore`` :644-1309, ``make_store`` :1312-1325, and the
+explicit forms of Eq. (3.1), Eq. (3.2) and Thm. 3.2 :1332-1372).
 
     w_i(t) = beta1 * s_i(t-1) + (1-beta1) * l_i(theta(t))
     s_i(t) = beta2 * s_i(t-1) + (1-beta2) * l_i(theta(t))
@@ -63,6 +64,7 @@ from ..kernels.score_update.ops import (fused_quant_score_update,
 from ..kernels.score_update.ref import q_gather_1d as _q_gather_1d
 from .pruning import (PruneResult, PruneSnapshot, QuantPruneSnapshot,
                       prune_epoch_snapshot)
+from .theory import es_weight_sequence, transfer_gain
 
 Blocks = List[torch.Tensor]
 
@@ -146,6 +148,13 @@ def update_scores(scores: ESScores, sample_ids: torch.Tensor,
     scores.seen.index_put_((ids,), torch.ones_like(ids, dtype=torch.int32),
                            accumulate=True)
     return scores
+
+
+def batch_weights(scores: ESScores, sample_ids: torch.Tensor,
+                  losses: torch.Tensor, beta1: float,
+                  beta2: float) -> torch.Tensor:
+    """The w(t) of Eq. (3.1) for a meta-batch, without mutating state."""
+    return weights_from_prev(scores.s[sample_ids.long()], losses, beta1)
 
 
 def _settle(*tensors: torch.Tensor) -> None:
@@ -1118,3 +1127,50 @@ def make_store(sharding: Optional[ScoreSharding] = None, *,
         return inner
     return QuantizedStore(inner, block=block, residual_rows=residual_rows,
                           wire=wire)
+
+
+# ---------------------------------------------------------------------------
+# Explicit (unrolled) forms: for tests and theory checks only
+# ---------------------------------------------------------------------------
+
+def explicit_weights(loss_history: torch.Tensor, beta1: float, beta2: float,
+                     s0: float) -> torch.Tensor:
+    """Unrolled Eq. (3.1): loss_history (T,) -> w(T) exactly: the last w
+    of ``theory.es_weight_sequence`` (float64), in the history's dtype;
+    ``s0`` for an empty history.
+
+    w(t) = beta1 * s(t-1) + (1-beta1) * l(t) with
+    s(t) = beta2^t s0 + (1-beta2) sum_k beta2^{t-k} l(k).
+    """
+    if loss_history.shape[0] == 0:
+        return torch.tensor(s0).to(loss_history)
+    w, _ = es_weight_sequence(loss_history, beta1, beta2, s0)
+    return w[-1].to(loss_history)
+
+
+def expansion_weights(loss_history: torch.Tensor, beta1: float, beta2: float,
+                      s0: float) -> torch.Tensor:
+    """Eq. (3.2): EMA-of-losses + (beta2-beta1)-weighted EMA of differences.
+
+    w(t) = (1-b2) sum_{k=1..t} b2^{t-k} l(k)
+         + (b2-b1) sum_{k=1..t-1} b2^{t-1-k} (l(k+1)-l(k))
+         + [b1 b2^{t-1} s0 + (b2-b1) b2^{t-1} l(1)]          (exact tail)
+    The bracketed tail is the O(beta2^t) term of the proposition, kept
+    exact so that tests can assert equality rather than asymptotics.
+    """
+    lh = loss_history
+    t = lh.shape[0]  # steps are 1-indexed in the paper
+    ema = (1 - beta2) * sum(beta2 ** (t - k) * lh[k - 1]
+                            for k in range(1, t + 1))
+    dif = (beta2 - beta1) * sum(beta2 ** (t - 1 - k) * (lh[k] - lh[k - 1])
+                                for k in range(1, t))
+    tail = (beta1 * beta2 ** (t - 1) * s0
+            + (beta2 - beta1) * beta2 ** (t - 1) * lh[0])
+    return ema + dif + tail
+
+
+def transfer_function(beta1: float, beta2: float,
+                      omega: torch.Tensor) -> torch.Tensor:
+    """|H(i w)| of Thm. 3.2: the frequency response of the ES weight
+    signal (``theory.transfer_gain`` on a tensor)."""
+    return transfer_gain(beta1, beta2, omega)

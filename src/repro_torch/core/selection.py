@@ -1,5 +1,5 @@
 """Batch-level selection: pick a mini-batch of b from a meta-batch of B
-(counterpart of ``repro/core/selection.py:34-115``).
+(counterpart of ``repro/core/selection.py:34-121``).
 
   es / loss : Gumbel top-k, sampling without replacement with p_i ~ w_i
   order     : deterministic top-k on the weights (Ordered SGD)
@@ -123,3 +123,9 @@ def masked_select_kept(method: str, weights: torch.Tensor,
     kept = torch.zeros(n, dtype=torch.bool, device=weights.device)
     kept[torch.topk(keys, k).indices] = True
     return kept & valid
+
+
+def selection_probs(weights: torch.Tensor) -> torch.Tensor:
+    """Normalized p_i ~ w_i (for diagnostics and tests)."""
+    w = torch.clamp(weights.float(), min=_EPS)
+    return w / torch.sum(w)

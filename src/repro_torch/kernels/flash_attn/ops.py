@@ -4,19 +4,23 @@ Counterpart of ``repro/kernels/flash_attn/ops.py:gqa_flash_attention``,
 with the same (B, S, H, hd) layout at the public function. A CPU tensor
 takes the plain version (``ref.py``); a CUDA tensor launches the kernel or
 raises. K and V are read through the kv-head index h // G, never repeated.
+A ``meta`` tensor follows the card's route and stops short of the launch
+(``kernels/_cost.py``).
 """
 from __future__ import annotations
 
 import torch
 
+from .. import dry, on_card_route
 from .._build import check, library, on_device
+from .._cost import SINKS, nbytes, report
 from .ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernel's instantiations
 
 
 def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.device.type != "cuda":
+    if not on_card_route(q):
         raise ValueError(f"gqa_flash_attention: tensors on {q.device}, the "
                          f"kernel takes CUDA tensors (CPU ones take the "
                          f"plain version)")
@@ -49,6 +53,12 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _validate(q, k, v)
     B, S, H, hd = q.shape
     o = torch.empty_like(q)
+    # the full S x S square of both products, as the reference's XLA dots
+    if SINKS:
+        report("flash_attn", 4.0 * B * H * S * S * hd, torch.bfloat16,
+               nbytes(q, k, v, o))
+    if dry(q):
+        return o
     lib = library()
     with on_device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -12,6 +12,11 @@ The two sequential updates take at most ``CHUNK`` ids a launch; a longer
 batch goes chunk by chunk, in order, on the current stream (on the CPU
 through the same loop, into the plain version), which keeps Eq. (3.1)
 sequential across chunks.
+
+A ``meta`` tensor follows the card's route and stops short of each
+launch (``kernels/_cost.py``): nothing real is mutated. A launch's bytes
+are its batch's inputs read once and the store rows it touches read and
+written once (the rows of a batch's in-range ids, counted per id).
 """
 from __future__ import annotations
 
@@ -20,7 +25,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import dry, on_card_route
 from .._build import check, library, on_device
+from .._cost import SINKS, nbytes, report
 from .ref import (quant_grow_scales_ref, quant_ring_slots_ref,
                   quant_score_update_ref, score_update_ref)
 
@@ -38,7 +45,7 @@ def _betas(beta1: float, beta2: float) -> Tuple[float, ...]:
 def _check_leaves(fn: str, dev: torch.device, named) -> None:
     """Every ``(name, tensor, dtype)`` on ``dev``, of ``dtype``, 1-D and
     contiguous; ``dev`` a CUDA device."""
-    if dev.type != "cuda":
+    if not on_card_route(dev):
         raise ValueError(f"{fn}: tensors on {dev}, the kernel takes CUDA "
                          f"tensors (CPU ones take the plain version)")
     for name, x, dt in named:
@@ -74,13 +81,19 @@ def fused_score_update(s: torch.Tensor, w: torch.Tensor, seen: torch.Tensor,
     on_cpu = s.device.type == "cpu"
     if not on_cpu:
         _validate(s, w, seen, ids, losses)
-        lib = library()
+        lib = None if dry(s) else library()
     for start in range(0, ids.shape[0], CHUNK):
         ids_c = ids[start:start + CHUNK]
         losses_c = losses[start:start + CHUNK]
         if on_cpu:
             score_update_ref(s, w, seen, ids_c, losses_c, beta1=beta1,
                              beta2=beta2)
+            continue
+        # s, w, seen: 12 bytes a touched row, read and written
+        if SINKS:
+            report("score_update", 0.0, torch.float32,
+                   nbytes(ids_c, losses_c) + 24 * ids_c.shape[0])
+        if lib is None:
             continue
         with on_device(s.device):
             stream = torch.cuda.current_stream().cuda_stream
@@ -148,6 +161,14 @@ def quant_grow_scales(s_q, w_q, s_scale, w_scale, err_rows, err_seq, err_s,
     _validate_scales(fn, s_q.shape[0], block, s_scale, w_scale)
     if ids.shape[0] == 0:
         return s_q, w_q, s_scale, w_scale
+    # the batch, and each id's block (two scales, block codes of s_q and
+    # w_q) read and written: at most, as a block re-codes only when its
+    # scale grows
+    if SINKS:
+        report("quant_grow_scales", 0.0, torch.float32,
+               nbytes(ids, gids, losses) + ids.shape[0] * 2 * (8 + 2 * block))
+    if dry(s_q):
+        return s_q, w_q, s_scale, w_scale
     lib = library()
     with on_device(s_q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -177,6 +198,11 @@ def quant_ring_slots(err_seq: torch.Tensor, ids: torch.Tensor, n: int
     slots = torch.empty(B, dtype=torch.int32, device=ids.device)
     seqs = torch.empty(B, dtype=torch.int32, device=ids.device)
     if B == 0:
+        return slots, seqs
+    if SINKS:
+        report("quant_ring_slots", 0.0, torch.int32,
+               nbytes(err_seq, ids, slots, seqs))
+    if dry(ids):
         return slots, seqs
     lib = library()
     with on_device(ids.device):
@@ -231,12 +257,19 @@ def fused_quant_score_update(s_q, w_q, seen_q, s_scale, w_scale, err_rows,
     on_cpu = s_q.device.type == "cpu"
     if not on_cpu:
         _validate_quant(block, *leaves, *batch)
-        lib = library()
+        lib = None if dry(s_q) else library()
     for start in range(0, ids.shape[0], CHUNK):
         chunk = [x[start:start + CHUNK] for x in batch]
         if on_cpu:
             quant_score_update_ref(*leaves, *chunk, beta1=beta1, beta2=beta2,
                                    block=block)
+            continue
+        # the chunk; a touched row's 3 codes and 2 scales read, its codes
+        # and ring row (rows, seq, s, w) written
+        if SINKS:
+            report("quant_score_update", 0.0, torch.float32,
+                   nbytes(*chunk) + chunk[0].shape[0] * (3 + 8 + 3 + 16))
+        if lib is None:
             continue
         with on_device(s_q.device):
             stream = torch.cuda.current_stream().cuda_stream

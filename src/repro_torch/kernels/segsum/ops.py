@@ -11,7 +11,9 @@ it, so ``segment_sum_autograd`` pairs it with the gradient kernel
 where the token is live and in a slot, 0 elsewhere.
 
 The host path is one launch per call: the checks compare each tensor once
-and sums and counts are two views of one allocation.
+and sums and counts are two views of one allocation. A ``meta`` tensor
+follows the card's route and stops short of the launch
+(``kernels/_cost.py``).
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ from typing import Tuple
 
 import torch
 
+from .. import dry, on_card_route
 from .._build import check, library, on_device
+from .._cost import SINKS, nbytes, report
 from .ref import segment_sum_grad_ref, segment_sum_ref
 
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
@@ -31,7 +35,7 @@ def _validate(fn: str, dev: torch.device, shape, named,
     ``(name, tensor, dtype, want_shape, dense)`` of ``dtype`` and
     ``want_shape`` on the CUDA device ``dev``, contiguous where ``dense``
     (the gradient of the sums may take any strides)."""
-    if dev.type != "cuda":
+    if not on_card_route(dev):
         raise ValueError(f"{fn}: tensors on {dev}, the kernel takes CUDA "
                          f"tensors (CPU ones take the plain version)")
     if len(shape) != 2 or shape[0] * shape[1] == 0:
@@ -62,9 +66,13 @@ def segment_sum(nll: torch.Tensor, segment_ids: torch.Tensor,
               (("nll", nll, _F32, shape, True),
                ("segment_ids", segment_ids, _I32, shape, True),
                ("mask", mask, _BOOL, shape, True)), max_segments)
-    lib = library()
     B, S = shape
     out = torch.empty((2, B, max_segments), dtype=_F32, device=dev)
+    if SINKS:
+        report("segment_sum", 0.0, _F32, nbytes(nll, segment_ids, mask, out))
+    if dry(out):
+        return out.unbind(0)
+    lib = library()
     with on_device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_segment_sum(
@@ -94,9 +102,14 @@ def segment_sum_grad(grad_sums: torch.Tensor, segment_ids: torch.Tensor,
                 False),
                ("segment_ids", segment_ids, _I32, shape, True),
                ("mask", mask, _BOOL, shape, True)), max_segments)
-    lib = library()
     B, S = shape
     out = torch.empty(shape, dtype=_F32, device=dev)
+    if SINKS:
+        report("segment_sum_grad", 0.0, _F32,
+               nbytes(grad_sums, segment_ids, mask, out))
+    if dry(out):
+        return out
+    lib = library()
     row, col = grad_sums.stride()
     with on_device(dev):
         stream = torch.cuda.current_stream().cuda_stream

@@ -7,7 +7,9 @@ vocab split) blocks, then ``xent_combine`` over the splits; the split
 count comes from ``vocab_split``. A CPU tensor takes the plain version
 (``ref.py``); a CUDA tensor launches the kernels or raises. No padding is
 needed: the kernels mask the ragged row, vocab and depth edges
-themselves, and read W as the (V, d) table.
+themselves, and read W as the (V, d) table. A ``meta`` tensor follows the
+card's route and stops short of the launches (``kernels/_cost.py``); its
+split is the H100's (``H100_SMS``).
 """
 from __future__ import annotations
 
@@ -17,7 +19,9 @@ from typing import Tuple
 
 import torch
 
+from .. import dry, on_card_route
 from .._build import check, library, on_device
+from .._cost import SINKS, nbytes, report
 from .ref import xent_combine_ref, xent_partials_ref, xent_ref
 
 BM, BN = 128, 256   # the partials kernel's row tile and vocab tile
@@ -25,6 +29,7 @@ BM, BN = 128, 256   # the partials kernel's row tile and vocab tile
 # slices against a tile's 16 slices at d = 1024
 FILL_TILES = 0.25
 MAX_SPLIT = 64
+H100_SMS = 132      # the split a meta tensor (the dry run) plans for
 
 
 def vocab_split(M: int, V: int, num_sms: int) -> Tuple[int, int]:
@@ -50,7 +55,7 @@ def _num_sms(index: int) -> int:
 
 
 def _validate(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor) -> None:
-    if h.device.type != "cuda":
+    if not on_card_route(h):
         raise ValueError(f"fused_xent: tensors on {h.device}, the kernel "
                          f"takes CUDA tensors (CPU ones take the plain "
                          f"version)")
@@ -77,7 +82,7 @@ def _validate(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor) -> None:
 
 
 def _validate_combine(part: torch.Tensor) -> None:
-    if part.device.type != "cuda":
+    if not on_card_route(part):
         raise ValueError(f"xent_combine: partials on {part.device}, the "
                          f"kernel takes CUDA tensors (CPU ones take the "
                          f"plain version)")
@@ -99,11 +104,16 @@ def xent_partials(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     if span <= 0 or span % BN:
         raise ValueError(f"xent_partials: span {span} must be a positive "
                          f"multiple of {BN}")
-    lib = library()
     M, d = h.shape
     V = w.shape[0]
     n_split = -(-V // span)
     part = torch.empty(M, n_split, 3, dtype=torch.float32, device=h.device)
+    if SINKS:
+        report("xent_partials", 2.0 * M * V * d, torch.bfloat16,
+               nbytes(h, w, labels, part))
+    if dry(h):
+        return part
+    lib = library()
     with on_device(h.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_xent_partials_bf16(
@@ -120,9 +130,13 @@ def xent_combine(part: torch.Tensor) -> torch.Tensor:
     if part.device.type == "cpu":
         return xent_combine_ref(part)
     _validate_combine(part)
-    lib = library()
     M, n_split, _ = part.shape
     nll = torch.empty(M, dtype=torch.float32, device=part.device)
+    if SINKS:
+        report("xent_combine", 0.0, torch.float32, nbytes(part, nll))
+    if dry(part):
+        return nll
+    lib = library()
     with on_device(part.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_xent_combine(part.data_ptr(), nll.data_ptr(), M,
@@ -138,10 +152,15 @@ def fused_xent(h: torch.Tensor, w: torch.Tensor,
     if h.device.type == "cpu":
         return xent_ref(h, w, labels)
     _validate(h, w, labels)
-    library()  # builds (or raises) before the device is queried
-    _, span = vocab_split(h.shape[0], w.shape[0], _num_sms(h.device.index))
+    if dry(h):
+        num_sms = H100_SMS
+    else:
+        library()  # builds (or raises) before the device is queried
+        num_sms = _num_sms(h.device.index)
+    _, span = vocab_split(h.shape[0], w.shape[0], num_sms)
     nll = xent_combine(xent_partials(h, w, labels, span))
-    fused_xent.launches += 1
+    if not dry(h):
+        fused_xent.launches += 1
     return nll
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from pathlib import Path
 from typing import Any, Dict, List
 
 import numpy as np
@@ -183,6 +184,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--submit-batch", type=int, default=4)
     ap.add_argument("--gen", type=int, default=8)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--bench-out", default=None,
+                    help="write admission-latency stats as a bench_trend "
+                         "rows JSON")
     return ap
 
 
@@ -243,6 +247,10 @@ def main(argv=None) -> Dict[str, Any]:
               "epoch_log": out["epoch_log"],
               "decode_shape": list(dec.shape), "wall_s": wall, **stats}
     print(json.dumps(report, indent=1))
+    if args.bench_out:
+        rows = [{"method": "admission", "k": args.max_batch, **stats,
+                 "steps": out["steps"], "streamed": n1 - n0}]
+        Path(args.bench_out).write_text(json.dumps({"rows": rows}, indent=1))
     return report
 
 

@@ -43,6 +43,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..kernels import on_card_route
 from ..kernels.flash_attn.ops import gqa_flash_attention
 from .layers import Params, apply_rope, rope_angles, winit
 
@@ -224,7 +225,7 @@ def prefill_attn(params: Params, x: torch.Tensor,
     k = apply_rope(k, cos, sin)
     cache["k"][:, :S] = k.to(cache["k"].dtype)
     cache["v"][:, :S] = v.to(cache["v"].dtype)
-    if x.is_cuda:
+    if on_card_route(x):       # meta: the dry run's trace
         out = gqa_flash_attention(q, k, v, causal=True)
     else:
         out = _chunked_causal(q.reshape(B, S, n_kv, n_heads // n_kv,

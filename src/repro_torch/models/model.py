@@ -42,6 +42,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..kernels import on_card_route
 from .attention import _grouped_attn, decode_attn, init_kv_cache, \
     prefill_attn
 from .layers import apply_norm, embed_tokens, unembed_matrix
@@ -210,7 +211,8 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict[str, torch.Tensor],
     if cfg.family in ("vlm", "encdec"):
         memory = memory_of(cfg, batch)
         if cfg.is_encdec:     # a no-grad pass: the flash kernel on the card
-            memory = encode(cfg, params, memory, scoring=memory.is_cuda)
+            memory = encode(cfg, params, memory,
+                            scoring=on_card_route(memory))
         else:
             memory = memory.to(dtype_of(cfg.compute_dtype))
         # one K/V a site (vlm) or a decoder layer (encdec)

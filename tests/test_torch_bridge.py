@@ -102,9 +102,11 @@ def test_port_imports_neither_jax_nor_repro():
         "       'repro_torch.configs.seamless_m4t_large_v2',\n"
         "       'repro_torch.distributed.fault_tolerance',\n"
         "       'repro_torch.distributed.hostcomm',\n"
-        "       'repro_torch.distributed.sharding'}\n"
+        "       'repro_torch.distributed.sharding',\n"
+        "       'repro_torch.kernels._cost', 'repro_torch.launch.cost',\n"
+        "       'repro_torch.launch.dryrun'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
-        "assert len(names) >= 67, names\n"
+        "assert len(names) >= 70, names\n"
         "print('OK', len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -251,6 +251,12 @@ def test_prefill_decode_and_greedy_generate_match_jax(arch):
     toks = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (Bs, P + G)).astype(np.int32)
     js = JaxServer(cfg, params=state.params)
+    # the same two functions, compiled with LLVM's backend optimisations
+    # off (the same HLO, a quicker compile)
+    js._prefill = fast_jit(lambda p, bt, c: jmodel.prefill(cfg, p, bt, c,
+                                                          CTX))
+    js._decode = fast_jit(lambda p, t, c, pos: jmodel.decode_step(
+        cfg, p, t, c, pos, CTX))
     tcfg = ModelConfig(**dataclasses.asdict(cfg))
     tparams = params_from_jax(jax.device_get(state.params))
     jcache = jmodel.init_cache(cfg, Bs, P + G)

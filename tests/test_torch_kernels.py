@@ -17,8 +17,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
-from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
+from _torch_parity import fast_jit, one_torch_thread  # noqa: F401
 from repro.core.scores import ESScores, make_store
 from repro.kernels.flash_attn.flash_attn import flash_attention
 from repro.kernels.flash_attn.ops import gqa_flash_attention as jax_gqa
@@ -83,10 +84,10 @@ def test_xent_plain_matches_pallas_and_oracle(M, V, dtype):
     got = fused_xent(h_t, w_t, torch.from_numpy(labels))
     # the interpreted kernel under one jit (eagerly, each of its ops
     # would compile on its own)
-    kern = jax.jit(lambda h, w, lab: per_token_xent_fused(
+    kern = fast_jit(lambda h, w, lab: per_token_xent_fused(
         h, w, lab, block_m=128, interpret=True))(h_j, w_j.T,
                                                  jnp.asarray(labels))
-    oracle = jax.jit(jax_xent_ref)(h_j, w_j.T, jnp.asarray(labels))
+    oracle = fast_jit(jax_xent_ref)(h_j, w_j.T, jnp.asarray(labels))
     tol = 1e-5 if dtype == "float32" else 5e-2
     assert got.dtype == torch.float32 and got.shape == (M,)
     np.testing.assert_allclose(_np(got), _np(kern), atol=tol, rtol=tol)
@@ -103,9 +104,9 @@ def test_xent_per_sample_masking():
     labels[1, :] = -1                              # fully masked row
     ps, mean = per_sample_xent_fused(torch.from_numpy(h), torch.from_numpy(w),
                                      torch.from_numpy(labels))
-    ps_k, mean_k = jax.jit(lambda *a: jax_ps_xent(*a, interpret=True))(
+    ps_k, mean_k = fast_jit(lambda *a: jax_ps_xent(*a, interpret=True))(
         jnp.asarray(h), jnp.asarray(w).T, jnp.asarray(labels))
-    ps_x, _ = jax.jit(lambda *a: jax_per_sample_xent(
+    ps_x, _ = fast_jit(lambda *a: jax_per_sample_xent(
         *a, ctx=ShardCtx(), seq_chunk=0))(jnp.asarray(h), jnp.asarray(w).T,
                                           jnp.asarray(labels))
     np.testing.assert_allclose(_np(ps), _np(ps_k), atol=1e-5, rtol=1e-5)
@@ -165,10 +166,10 @@ def test_flash_plain_matches_pallas(causal):
                for _ in range(3))
     got = gqa_flash_attention(*(torch.from_numpy(x)[:, :, None]
                                 for x in (q, k, v)), causal=causal)[:, :, 0]
-    kern = jax.jit(lambda *a: flash_attention(
+    kern = fast_jit(lambda *a: flash_attention(
         *a, block_q=64, block_k=64, causal=causal, interpret=True))(
             *(jnp.asarray(x) for x in (q, k, v)))
-    oracle = jax.jit(lambda *a: attention_ref(*a, causal=causal))(
+    oracle = fast_jit(lambda *a: attention_ref(*a, causal=causal))(
         *(jnp.asarray(x) for x in (q, k, v)))
     np.testing.assert_allclose(_np(got), _np(kern), atol=2e-5)
     np.testing.assert_allclose(_np(got), _np(oracle), atol=2e-5)
@@ -182,7 +183,7 @@ def test_flash_plain_gqa_matches_pallas_wrapper(dtype):
     k_j, k_t = _pair(rng.normal(size=(B, S, K, hd)), dtype)
     v_j, v_t = _pair(rng.normal(size=(B, S, K, hd)), dtype)
     got = gqa_flash_attention(q_t, k_t, v_t)
-    kern = jax.jit(lambda *a: jax_gqa(*a, block_q=64, block_k=64,
+    kern = fast_jit(lambda *a: jax_gqa(*a, block_q=64, block_k=64,
                                       interpret=True))(q_j, k_j, v_j)
     tol = 2e-5 if dtype == "float32" else 2e-2
     assert got.dtype == TDT[dtype] and got.shape == (B, S, H, hd)
@@ -298,8 +299,12 @@ def test_score_update_chunks_keep_sequence(monkeypatch):
 # off the CPU a wrapper launches its kernel or raises
 # ---------------------------------------------------------------------------
 
+# the device of the stand-in tensors: meta, the card's route without data
+_STANDIN = {"device": "meta"}
+
+
 def _meta(shape, dtype):
-    return torch.empty(shape, dtype=dtype, device="meta")
+    return torch.empty(shape, dtype=dtype, device=_STANDIN["device"])
 
 
 def _no_plain(*_, **__):
@@ -366,18 +371,22 @@ CALLS = {
 
 @pytest.mark.parametrize("name", sorted(CALLS))
 def test_wrapper_off_cpu_raises_instead_of_plain(name, monkeypatch, tmp_path):
-    """A non-CPU tensor never takes the plain version: it fails the
-    wrapper's device check, and with the check passed (as a CUDA tensor
-    would) the kernel library has to build, which raises on a machine
-    without nvcc."""
+    """A non-CPU tensor never takes the plain version: on a device the
+    kernels do not take (a fake xpu tensor) it fails the wrapper's device
+    check, and on the card's route with the checks passed (a meta tensor
+    that is not the dry run's stand-in, as a CUDA tensor) the kernel
+    library has to build, which raises on a machine without nvcc."""
     module, ref_name, wrapper, call = CALLS[name]
     monkeypatch.setattr(module, ref_name, _no_plain)
-    with pytest.raises(ValueError, match="CUDA"):
-        call()
+    with FakeTensorMode(), monkeypatch.context() as m:
+        m.setitem(_STANDIN, "device", "xpu")
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
     for check in ("_validate", "_validate_quant", "_validate_combine",
                   "_check_leaves"):
         if hasattr(module, check):
             monkeypatch.setattr(module, check, lambda *a: None)
+    monkeypatch.setattr(module, "dry", lambda t: False)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "CUDA_ROOTS", (str(tmp_path),))

@@ -27,7 +27,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
+from _torch_parity import fast_jit, one_torch_thread  # noqa: F401
 from repro.configs.registry import get_smoke_config
 from repro.models.attention import mha as jax_mha
 from repro.models.layers import ShardCtx
@@ -87,7 +87,7 @@ def test_chunked_attention_matches_jax(packed):
         rows = _packed_rows(B)
         extra = {"positions": rows["positions"],
                  "segment_ids": rows["segment_ids"]}
-    want = jax.jit(lambda p, xx, e: jax_mha(p, xx, ctx=ShardCtx(),
+    want = fast_jit(lambda p, xx, e: jax_mha(p, xx, ctx=ShardCtx(),
                                             chunk_q=CHUNK, **e, **kw))(
         {k: jnp.asarray(v) for k, v in layer0.items()}, jnp.asarray(x),
         {k: jnp.asarray(v) for k, v in extra.items()})
@@ -119,14 +119,14 @@ def test_chunked_xent_matches_jax(form):
     jh, jw, jl, js = map(jnp.asarray, (h, w, labels, seg))
     if form == "per_sample":
         got, got_mean = per_sample_xent(th, tw, tl, seq_chunk=CHUNK)
-        want, want_mean = jax.jit(lambda *a: jax_per_sample_xent(
+        want, want_mean = fast_jit(lambda *a: jax_per_sample_xent(
             *a, ctx=ShardCtx(), seq_chunk=CHUNK))(jh, jw, jl)
         np.testing.assert_allclose(float(got_mean), float(want_mean),
                                    atol=1e-5)
     else:
         got, counts = per_segment_xent(th, tw, tl, ts, max_segments=4,
                                        seq_chunk=CHUNK)
-        want, want_c = jax.jit(lambda *a: jax_per_segment_xent(
+        want, want_c = fast_jit(lambda *a: jax_per_segment_xent(
             *a, max_segments=4, ctx=ShardCtx(), seq_chunk=CHUNK))(
                 jh, jw, jl, js)
         np.testing.assert_array_equal(counts.numpy(), np.asarray(want_c))
@@ -157,7 +157,7 @@ def test_remat_loss_and_grads_match_jax(policy):
     jparams = _jax_params(cfg)
     batch = _lm_batch()
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    want_loss, want_g = jax.jit(jax.value_and_grad(lambda p: jax_lm_loss(
+    want_loss, want_g = fast_jit(jax.value_and_grad(lambda p: jax_lm_loss(
         cfg, p, jb, ShardCtx(), seq_chunk=CHUNK)[1]))(jparams)
     loss, grads = _port_loss_and_grads(cfg, jparams, batch)
     np.testing.assert_allclose(float(loss), float(want_loss), atol=1e-4,

@@ -139,9 +139,9 @@ def test_segsum_plain_matches_pallas_and_oracle(B, S, M):
     args = (jnp.asarray(nll), jnp.asarray(seg), jnp.asarray(mask))
     # the interpreted kernel under one jit (eagerly, each of its ops
     # would compile on its own)
-    kern = jax.jit(lambda *a: segment_sum_fused(*a, max_segments=M,
-                                                interpret=True))(*args)
-    oracle = jax.jit(lambda *a: jax_segsum_ref(*a, max_segments=M))(*args)
+    kern = fast_jit(lambda *a: segment_sum_fused(*a, max_segments=M,
+                                                 interpret=True))(*args)
+    oracle = fast_jit(lambda *a: jax_segsum_ref(*a, max_segments=M))(*args)
     assert sums.shape == counts.shape == (B, M)
     for ks, kc in (kern, oracle):
         np.testing.assert_array_equal(counts.numpy(), np.asarray(kc))

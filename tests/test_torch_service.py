@@ -18,7 +18,8 @@ package.
   fresh trainer equals an ungrown run on the original rows;
 * ``Trainer.grow`` refuses rows the source lacks, the service refuses a
   trainer without a ``StreamingSource``, and the service CLI runs with
-  ``--device cpu`` and refuses the default ``cuda`` without a GPU.
+  ``--device cpu`` and refuses the default ``cuda`` without a GPU; its
+  ``--bench-out`` writes the reference's admission rows.
 """
 import dataclasses
 import json
@@ -273,3 +274,22 @@ def test_service_cli_on_cpu_and_default_device(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tservice.main(["--epochs", "1"])
+
+
+def test_service_bench_out_writes_reference_rows(tmp_path, capsys):
+    out = tmp_path / "bench.json"
+    report = tservice.main(["--device", "cpu", "--epochs", "1",
+                            "--n-samples", "8", "--seq-len", "8",
+                            "--meta-batch", "4", "--submit-every", "1",
+                            "--max-batch", "4", "--gen", "1",
+                            "--bench-out", str(out)])
+    capsys.readouterr()
+    rows = json.loads(out.read_text())["rows"]
+    stats = JaxController(lambda t, l: None,
+                          lambda w: None).latency_stats()
+    assert len(rows) == 1
+    assert set(rows[0]) == {"method", "k", "steps", "streamed", *stats}
+    assert rows[0]["method"] == "admission" and rows[0]["k"] == 4
+    assert rows[0]["steps"] == report["steps"]
+    assert rows[0]["streamed"] == report["streamed"]
+    assert rows[0]["admit_latency_p95_s"] == report["admit_latency_p95_s"]

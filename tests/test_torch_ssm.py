@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
+from _torch_parity import fast_jit, one_torch_thread  # noqa: F401
 from repro.models import ssm as jssm
 from repro.models.layers import ShardCtx
 from repro_torch.models import ssm as tssm
@@ -118,7 +118,7 @@ def test_decode_steps_match_full_forward_and_jax():
                                    return_state=True, **kw)
     cache = tssm.init_ssm_cache(B, D, conv_width=W, device="cpu", **kw)
     jcache = jssm.init_ssm_cache(B, D, conv_width=W, **kw)
-    jdecode = jax.jit(lambda pp, xx, c: jssm.mamba2_decode(
+    jdecode = fast_jit(lambda pp, xx, c: jssm.mamba2_decode(
         pp, xx, c, ctx=CTX, **kw))
     ys = []
     for t in range(S):
