@@ -29,7 +29,9 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    segment-sum kernels (forward and gradient) on path A's batch and on
    random ids up to 32,771 tokens a row and 150 slots, unaligned pointers
    and rows shorter than a vector, each case run twice and compared
-   bitwise (no atomics);
+   bitwise (no atomics); and the xent partials over a vocabulary split
+   in two (labels outside a slice, below 0 and in its last tile's
+   padding, add exactly 0), folded by the combine kernel;
 4. ``time`` each kernel, its plain version and one PyTorch library call
    with CUDA events, the kernels alone under torch.profiler (device ms;
    the library call's too), compute each kernel's bound from its inputs,
@@ -138,7 +140,28 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    ``reset_peak_memory_stats``) is within 5 % or 256 MiB of the
    predicted one, whichever is larger, the roofline share (the
    predicted ``step_s_lower_bound`` over the device time) is at most
-   1.05, and the step's losses or logits are finite;
+   1.05, and the step's losses or logits are finite; then phase
+   ``mesh``: the dense model sharded over a (2, 2) ("data", "model")
+   mesh of four child processes (``--mesh-child RANK PORT DIR``, a gloo
+   group over rank 0's ``TCPStore``) on the one card, their collectives
+   staged through pinned host buffers: full-width qwen1.5-0.5b's
+   ``es_step`` at S1's traffic under ``fsdp_on`` (data, FSDP and tensor
+   legs), then SV's prefill and four decode steps under
+   ``kv_replicate`` (the cache's sequence over "model"), on the shards
+   of this process's weights and rows of its batch; each rank held to
+   this process's one-process run (the same selected rows, scoring
+   losses within 5e-2, first and second moments within 5e-2 and 1e-1
+   in L2, the updated weights AdamW's step by them within 1e-6; the
+   prefill's and each decode step's logits within 5e-2 x max(1,
+   |logit|) of the plain run's, or 1.25 x the largest gap of an
+   SDPA-bf16 run of the same steps; the prefill and decode steps again
+   in float32 compute within 1e-4 x max(1, |logit|) of the one-process
+   float32 run) and each measured call
+   (the ES step, the prefill, the first decode step) to the dry run's
+   trace of the same (2, 2) cell under a fake group of 4 (FLOPs equal,
+   peak within 5 % or 256 MiB, collective bytes equal, launches: flash
+   24 a scoring forward and a prefill on 8 local heads, xent's two
+   halves on the rank's vocabulary slice, one score update);
 7. ``legs``: where a step's time goes (serial-ES legs and a profiled step;
    the packed step's legs and the segment-sum kernels' launches and device
    time inside its forward + backward; the int8 store update against the
@@ -154,7 +177,7 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    device time both streams are busy), and the host syncs of one step of
    each under torch's sync debug mode, also with the drift cadence firing;
 10. ``memory``: ``train``, ``train_packed``, ``train_packed_m16`` and
-   ``train_long`` with the memory knobs off and on, in turns (peak device
+   ``train_long`` with the memory knobs off, then on (peak device
    memory, the training leg's time and device time, the scoring leg, the
    median step) and ``train`` with remat "full";
 11. ``prune``: the f32 and the int8 store at n = 2^20 and 2^24 rows,
@@ -562,6 +585,47 @@ def check_xent_parts(M: int, V: int, d: int) -> float:
     return max(errs)
 
 
+def check_xent_split(M: int, V: int, d: int, m: int) -> float:
+    """The vocabulary split over m ranks (phase ``mesh``'s scoring
+    cross-entropy): the partials kernel on each slice of V / m rows with
+    the labels shifted by the slice's offset, so that each slice sees
+    labels below 0 and at or past its end, the padded columns of its last
+    ragged tile included (a third of the rows' labels are put there). A
+    label outside the slice must add exactly 0 to the target partial; the
+    partials against the plain version's; the slices' partials, folded
+    rank-major by the combine kernel, against the whole table's plain
+    cross-entropy."""
+    from repro_torch.kernels.xent.ops import plan_span, xent_combine, \
+        xent_partials
+    from repro_torch.kernels.xent.ref import xent_partials_ref, xent_ref
+    h, w, labels = xent_inputs(M, V, d, seed=2)
+    n = V // m
+    labels[::3] = n + labels[::3] % 64       # past slice 0's last column
+    parts, errs = [], []
+    for r in range(m):
+        local = (labels - r * n).contiguous()
+        span = plan_span(h, n)
+        got = xent_partials(h, w[r * n:(r + 1) * n].contiguous(), local,
+                            span)
+        want = xent_partials_ref(h, w[r * n:(r + 1) * n], local, span)
+        outside = (local < 0) | (local >= n)
+        if not bool(outside.any()) or \
+                bool((got[outside][..., 2] != 0).any()):
+            raise AssertionError(f"xent split {r}/{m}: a label outside the "
+                                 f"slice reached the target partial")
+        errs += [(got[..., 0] - want[..., 0]).abs().max().item(),
+                 (got[..., 1] / want[..., 1] - 1).abs().max().item(),
+                 (got[..., 2] - want[..., 2]).abs().max().item()]
+        parts.append(got)
+    nll = xent_combine(torch.cat(parts, dim=1).contiguous())
+    errs.append((nll - xent_ref(h, w, labels)).abs().max().item())
+    torch.cuda.synchronize()
+    if not max(errs) <= XENT_TOL:
+        raise AssertionError(f"xent split M={M} V={V} d={d} over {m}: "
+                             f"|err| {errs} > {XENT_TOL}")
+    return max(errs)
+
+
 def check_flash(B: int, S: int, H: int, K: int, hd: int,
                 causal: bool) -> float:
     from repro_torch.kernels.flash_attn.ops import gqa_flash_attention
@@ -950,6 +1014,7 @@ def phase_check() -> dict:
                           check_xent(300, 257, 128),
                           check_xent_parts(1024, 151936, 1024),
                           check_xent_parts(100, 257, 1000),
+                          check_xent_split(8192, 151936, 1024, 2),
                           # the other families' scoring forwards (mamba2,
                           # zamba2, the arctic smoke path) and grok-1's
                           # (d, V), which no training path reaches
@@ -3440,16 +3505,16 @@ def _knob_run(args, knobs: str) -> dict:
 
 
 def phase_memory() -> None:
-    """The four paths whose training leg the knobs bound, each run with the
-    knobs off and on in turns (off, on, on, off), in one call, and
-    ``train`` also with remat "full". Each run's losses must be finite,
-    and the knobs on must lower each path's peak. (Path A at meta-batch
-    32, which fits only with the knobs on, is path ``train_packed_mb32``.)
+    """The four paths whose training leg the knobs bound, each run once
+    with the knobs off and once on, in one call, and ``train`` also with
+    remat "full" (the peaks repeat to the byte, so one run a setting
+    holds them). Each run's losses must be finite, and the knobs on must
+    lower each path's peak. (Path A at meta-batch 32, which fits only
+    with the knobs on, is path ``train_packed_mb32``.)
     """
     rows = {}
     for name in MEMORY_PATHS:
-        order = ("off", "on", "on", "off") + (("full",) if name == "train"
-                                               else ())
+        order = ("off", "on") + (("full",) if name == "train" else ())
         rows[name] = [_knob_run(PATH_ARGS[name], k) for k in order]
     emit({"phase": "memory", "rows": rows, "card": smi_line()})
     for name, runs in rows.items():
@@ -3861,6 +3926,437 @@ def phase_cluster() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase mesh: the dense model sharded over a (2, 2) mesh of four processes
+# ---------------------------------------------------------------------------
+
+MESH_SHAPE, MESH_NAMES = (2, 2), ("data", "model")
+MESH_MB = 8                       # S1's minibatch
+# a rank's updated state against the one-process run: the first and
+# second moments (the step's clipped gradient x 0.1, its square x 0.05)
+# in relative L2, m within the bf16 tolerance and v within twice it (a
+# square doubles a relative error); the weights as AdamW's step from the
+# rank's weights before it by its own moments, to float32 rounding (a
+# first step moves a weight by at most lr (1 + wd |p|) whatever the
+# gradient, so weights held to the one-process run would hold nothing)
+MESH_M_TOL = 5e-2
+MESH_V_TOL = 1e-1
+MESH_UPDATE_TOL = 1e-6
+# the prefill and decode steps again in float32 compute (the attention
+# through flash's plain version: the kernel takes bf16 only), held to the
+# one-process float32 run as the CPU tests hold float32 (rtol 1e-4), per
+# logit: |err| <= MESH_F32_TOL * max(1, |logit|). The bf16 run's prefill
+# and decode steps are held as serve's prefill is: MODEL_TOL, or
+# SDPA_SLACK x the largest gap of the one-process SDPA-bf16 run over its
+# prefill and decode steps (this model's bf16 disagreement at this
+# cache): a rank's row-parallel partial sums round to bf16 before they
+# are summed, as the reference's partitioned XLA program rounds them
+MESH_F32_TOL = 1e-4
+
+
+def mesh_cells() -> dict:
+    """kind -> (ShapeConfig, variant): the ES step at S1's traffic under
+    ``fsdp_on`` (the data, FSDP and tensor legs all run), SV's prefill and
+    a decode step on its cache of 512 + 4 under ``kv_replicate`` (the
+    cache's sequence split over "model")."""
+    from repro_torch.configs.base import ShapeConfig
+    return {
+        "train": (ShapeConfig("s1", 512, 32, "train"), "fsdp_on"),
+        "prefill": (ShapeConfig("sv_prefill", SERVE_P, SERVE_B, "prefill"),
+                    "kv_replicate"),
+        "decode": (ShapeConfig("sv_decode", SERVE_P + TEACHER_STEPS,
+                               SERVE_B, "decode"), "kv_replicate")}
+
+
+def _mesh_counts(counter, peak: int, ms: float, wrappers: dict) -> dict:
+    from repro_torch.distributed import collectives
+    return {"flops": counter.total_flops,
+            "flops_by_dtype": {str(k).replace("torch.", ""): v
+                               for k, v in counter.flops.items()},
+            "peak_bytes": peak,
+            "collectives": {k: dict(v) for k, v in
+                            counter.collectives.items() if v["count"]},
+            "collective_bytes_total": counter.collective_bytes,
+            "launches": {k: fn.launches for k, fn in wrappers.items()
+                         if fn.launches},
+            "ms": ms,
+            "collective_ms": 1e3 * sum(collectives.SECONDS.values()),
+            "staged_bytes": sum(collectives.STAGED.values())}
+
+
+@contextlib.contextmanager
+def mesh_counted(wrappers: dict, out: dict):
+    """One measured call: every launch count 0 just before, the peak
+    reset; the cost counter's reading, the peak, the host ms (to a
+    device sync) and the collectives' host ms into ``out``."""
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.cost import CostCounter
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    collectives.SECONDS.clear()
+    collectives.STAGED.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with CostCounter() as counter:
+        yield
+    torch.cuda.synchronize()
+    out.update(_mesh_counts(counter, torch.cuda.max_memory_allocated(),
+                            (time.perf_counter() - t0) * 1e3, wrappers))
+
+
+def mesh_child(rank: int, port: int, ref_dir: str) -> None:
+    """``--mesh-child RANK PORT DIR``: one rank of phase ``mesh``. The
+    four ranks join a gloo group over rank 0's ``TCPStore``, build the
+    (2, 2) mesh, take their shards of the parent's weights and rows of its
+    batch (the same seeds), and run the ES step, the prefill and four
+    decode steps; one JSON line of counts, times and errors against the
+    parent's one-process run (``DIR/one.pt``)."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import make_ctx, shard_tree
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    from repro_torch.models.transformer import (init_lm, lm_per_sample_loss,
+                                                param_axes, tree_leaves,
+                                                tree_map)
+    torch.cuda.set_device(0)
+    store = dist.TCPStore("127.0.0.1", port, 4, rank == 0,
+                          timeout=datetime.timedelta(seconds=600))
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=4)
+    mesh = make_mesh(MESH_SHAPE, MESH_NAMES)
+    one = torch.load(Path(ref_dir) / "one.pt", mmap=True)
+    import dataclasses
+    wrappers = {**_wrappers(), **_xent_halves()}
+    base = get_config("qwen1.5-0.5b")
+    res = {"mesh_child": rank, "coordinate": mesh.get_coordinate()}
+
+    def shards(cfg, ctx):
+        full = init_lm(base, _gen(dryrun.SEED), "cuda")   # prepare's draws
+        local = tree_map(lambda t: t.contiguous().clone(),
+                         shard_tree(full, param_axes(cfg), ctx))
+        del full
+        torch.cuda.empty_cache()
+        return local
+
+    # the ES step (fsdp_on)
+    shape, variant = mesh_cells()["train"]
+    cfg = dryrun.apply_variant(base, dryrun.VARIANTS[variant])[0]
+    ctx = make_ctx(cfg, mesh, "train")
+    lo, n = ctx.local("batch", shape.global_batch)
+    batch = {k: v[lo:lo + n].clone() for k, v in dryrun.make_batch(
+        base, shape.global_batch, shape.seq_len, "cuda",
+        _gen(dryrun.SEED)).items()}
+    prep = dryrun.prepare(base, shape, dryrun.VARIANTS[variant], "cuda",
+                          minibatch=MESH_MB, mesh=mesh,
+                          params=shards(cfg, ctx), batch=batch)
+    params, opt = prep.args[0], prep.args[1]
+    with torch.no_grad():      # the scoring losses (and a warm-up)
+        losses = ctx.all_gather(lm_per_sample_loss(
+            cfg, params, batch, scoring=True, ctx=ctx)[0], "batch", 0)
+    train = {"loss_err": (losses - one["losses"].cuda()).abs().max().item()}
+    p0 = [t.float().cpu() for t in tree_leaves(params)]   # off the card
+    with mesh_counted(wrappers, train):
+        metrics = prep.step()[1]
+    train["selected_equal"] = bool(torch.equal(
+        metrics["selected"].cpu(), one["selected"]))
+    axes = param_axes(cfg)
+    for f in ("m", "v"):
+        num = den = 0.0
+        for a, w in zip(tree_leaves(getattr(opt, f)), tree_leaves(
+                shard_tree(one[f], axes, ctx))):
+            num += (a.cpu().float() - w).square().sum().item()
+            den += w.square().sum().item()
+        train[f"{f}_rel_l2"] = (num / den) ** 0.5
+    train["update_err"] = max(
+        (p1.cpu() - w).abs().max().item() for p1, w in zip(
+            tree_leaves(params), adamw_first_step(
+                p0, [t.cpu() for t in tree_leaves(opt.m)],
+                [t.cpu() for t in tree_leaves(opt.v)],
+                float(metrics["lr_scale"]))))
+    res["train"] = train
+    del prep, params, opt, metrics, batch, losses, p0
+    torch.cuda.empty_cache()
+
+    # prefill and four decode steps (kv_replicate: the cache's sequence
+    # over "model"), measured: the prefill and the first decode step
+    shape, variant = mesh_cells()["decode"]
+    cfg = dryrun.apply_variant(base, dryrun.VARIANTS[variant])[0]
+    dctx = make_ctx(cfg, mesh, "decode")
+    params = shards(cfg, dctx)
+    lo, n = dctx.local("batch", SERVE_B)
+    tokens = one["prompts"][lo:lo + n].cuda()
+    cache = init_cache(cfg, SERVE_B, shape.seq_len, device="cuda", ctx=dctx)
+    res["cache_shape"] = list(cache["kv"]["k"].shape)
+    res["prefill"], res["decode"] = {}, {}
+    with torch.no_grad():
+        with mesh_counted(wrappers, res["prefill"]):
+            logits, cache = prefill(cfg, params, {"tokens": tokens}, cache,
+                                    dctx)
+        errs = [logit_errs(logits, one["logits"][0, lo:lo + n].cuda())]
+        pos = torch.full((1,), SERVE_P, dtype=torch.long, device="cuda")
+        for i in range(TEACHER_STEPS):
+            tok = one["tokens"][i, lo:lo + n, None].cuda()
+            if i == 0:
+                with mesh_counted(wrappers, res["decode"]):
+                    logits, cache = decode_step(cfg, params, tok, cache,
+                                                pos, dctx)
+            else:
+                logits, cache = decode_step(cfg, params, tok, cache, pos,
+                                            dctx)
+            errs.append(logit_errs(logits,
+                                   one["logits"][i + 1, lo:lo + n].cuda()))
+            pos += 1
+    res["logit_errs"] = errs
+    del cache, logits
+    # the same in float32 compute, the attention through flash's plain
+    # version, against the one-process float32 run
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cache = init_cache(f32, SERVE_B, shape.seq_len, dtype=torch.float32,
+                       device="cuda", ctx=dctx)
+    with torch.no_grad(), plain_attention():
+        logits, cache = prefill(f32, params, {"tokens": tokens}, cache,
+                                dctx)
+        errs = [logit_errs(logits, one["logits_f32"][0, lo:lo + n].cuda())]
+        pos = torch.full((1,), SERVE_P, dtype=torch.long, device="cuda")
+        for i in range(TEACHER_STEPS):
+            tok = one["tokens"][i, lo:lo + n, None].cuda()
+            logits, cache = decode_step(f32, params, tok, cache, pos, dctx)
+            errs.append(logit_errs(
+                logits, one["logits_f32"][i + 1, lo:lo + n].cuda()))
+            pos += 1
+    res["logit_errs_f32"] = errs
+    emit(res)
+    dist.destroy_process_group()
+
+
+def adamw_first_step(p0: list, m: list, v: list, lr_scale: float) -> list:
+    """The weights after AdamW's first step (``dryrun.OptConfig``, the
+    port's order of operations) from the weights before it and the moments
+    it left: what a rank's updated weights must equal."""
+    import numpy as np
+    from repro_torch.launch import dryrun
+    cfg = dryrun.OptConfig()
+    lr = float(np.float32(cfg.lr) * np.float32(lr_scale))
+    bc1 = float(np.float32(1.0) - np.float32(cfg.beta1))
+    bc2 = float(np.float32(1.0) - np.float32(cfg.beta2))
+    return [p - lr * ((a / bc1) / (torch.sqrt(b / bc2) + cfg.eps)
+                      + cfg.weight_decay * p)
+            for p, a, b in zip(p0, m, v)]
+
+
+def _xent_halves() -> dict:
+    from repro_torch.kernels.xent.ops import xent_combine, xent_partials
+    return {"xent_partials": xent_partials, "xent_combine": xent_combine}
+
+
+def _mesh_one_process(ref_dir: Path) -> dict:
+    """The parent's one-process run on the card, saved for the ranks:
+    the ES step (fsdp_on, which one card ignores) with its scoring
+    losses, selected rows, updated weights and first moments; the plain
+    prefill (flash's plain version) and four decode steps, teacher-forced
+    with its argmax tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    from repro_torch.models.transformer import (init_lm, lm_per_sample_loss,
+                                                tree_map)
+    base = get_config("qwen1.5-0.5b")
+    shape, variant = mesh_cells()["train"]
+    prep = dryrun.prepare(base, shape, dryrun.VARIANTS[variant], "cuda",
+                          minibatch=MESH_MB)
+    params, opt, batch = prep.args[0], prep.args[1], prep.args[-1]
+    with torch.no_grad():
+        losses, _ = lm_per_sample_loss(base, params, batch, scoring=True)
+    t0 = time.perf_counter()
+    _, metrics = prep.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    one = {"losses": losses.cpu(), "selected": metrics["selected"].cpu(),
+           "m": tree_map(lambda t: t.float().cpu(), opt.m),
+           "v": tree_map(lambda t: t.float().cpu(), opt.v)}
+    del prep, params, opt, batch, metrics, losses
+    torch.cuda.empty_cache()
+    shape, variant = mesh_cells()["decode"]
+    cfg = dryrun.apply_variant(base, dryrun.VARIANTS[variant])[0]
+    params = init_lm(base, _gen(dryrun.SEED), "cuda")
+    prompts = dryrun.make_batch(base, SERVE_B, SERVE_P, "cuda",
+                                _gen(dryrun.SEED + 1), train=False)["tokens"]
+
+    def run(c, attention, toks, dtype=torch.bfloat16):
+        """Prefill and TEACHER_STEPS decode steps, teacher-forced with
+        ``toks`` (or the run's own argmax) -> (logits (steps + 1, B, V),
+        the tokens fed)."""
+        cache = init_cache(c, SERVE_B, shape.seq_len, dtype=dtype,
+                           device="cuda")
+        with torch.no_grad(), attention():
+            logits, cache = prefill(c, params, {"tokens": prompts}, cache)
+            seq, fed = [logits], []
+            pos = torch.full((1,), SERVE_P, dtype=torch.long, device="cuda")
+            for i in range(TEACHER_STEPS):
+                tok = toks[i] if toks is not None else torch.argmax(
+                    seq[-1], dim=-1).to(torch.int32)
+                fed.append(tok)
+                logits, cache = decode_step(c, params, tok[:, None], cache,
+                                            pos)
+                seq.append(logits)
+                pos += 1
+        return torch.stack(seq), torch.stack(fed)
+    plain, toks = run(cfg, plain_attention, None)
+    sdpa, _ = run(cfg, sdpa_attention, toks)
+    f32, _ = run(dataclasses.replace(cfg, compute_dtype="float32"),
+                 plain_attention, toks, torch.float32)
+    sdpa_gap = [logit_errs(a, b) for a, b in zip(sdpa, plain)]
+    one.update(prompts=prompts.cpu(), logits=plain.cpu(), tokens=toks.cpu(),
+               logits_f32=f32.cpu())
+    torch.save(one, ref_dir / "one.pt")
+    del params, plain, sdpa, f32
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "sdpa_gap": sdpa_gap}
+
+
+def phase_mesh() -> dict:
+    """The dense family sharded over a (2, 2) ("data", "model") mesh of
+    four processes on the one card (gloo; their collectives staged
+    through pinned host buffers): full-width qwen1.5-0.5b's ES step at
+    S1's traffic under ``fsdp_on``, SV's prefill and four decode steps
+    under ``kv_replicate``. Each rank is held to this process's
+    one-process run (selected rows equal; scoring losses within 5e-2; the
+    first and second moments within ``MESH_M_TOL`` and ``MESH_V_TOL`` in
+    L2, the updated weights AdamW's step by them within
+    ``MESH_UPDATE_TOL``; the bf16 prefill's and decode steps' logits
+    within MODEL_TOL x max(1, |logit|) of the plain run's, or SDPA_SLACK x
+    its SDPA-bf16 run's largest gap; float32 reruns within
+    ``MESH_F32_TOL``), and each
+    measured call to the dry run's trace of the same (2, 2) cell under a
+    fake group of 4 in this process (FLOPs equal, peak within 5 % or 256
+    MiB, collective bytes equal) and to its launches (flash 24 a scoring
+    forward and a prefill, xent's two halves, one score update). Returns
+    the ranks' launches of the measured calls."""
+    import shutil
+    import socket
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import mesh_info
+    base = get_config("qwen1.5-0.5b")
+    pred = {}
+    t0 = time.perf_counter()
+    with dryrun.fake_mesh(MESH_SHAPE, MESH_NAMES) as m:
+        for kind, (shape, variant) in mesh_cells().items():
+            pred[kind] = dryrun.count(dryrun.prepare(
+                base, shape, dryrun.VARIANTS[variant],
+                minibatch=MESH_MB if kind == "train" else None, mesh=m),
+                mesh_info(m))
+    trace_s = time.perf_counter() - t0
+    ref_dir = Path(tempfile.mkdtemp())
+    try:
+        one = _mesh_one_process(ref_dir)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        sys.stdout.flush()
+        t1 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-child",
+             str(r), str(port), str(ref_dir)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(4)]
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        ranks_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    got = []
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        lines = [json.loads(x) for x in o.splitlines()
+                 if x.startswith('{"mesh_child"')]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"mesh: rank {r} failed (rc "
+                                 f"{p.returncode}):\n{o[-4000:]}")
+        got.append(lines[-1])
+    bf16_bound = SDPA_SLACK * max(rel for _, rel in one["sdpa_gap"])
+    want_launches = {"train": {"gqa_flash_attention": 24,
+                               "xent_partials": 1, "xent_combine": 1,
+                               "fused_score_update": 1},
+                     "prefill": {"gqa_flash_attention": 24},
+                     "decode": {}}
+    emit({"phase": "mesh", "mesh": list(MESH_SHAPE), "trace_s": trace_s,
+          "ranks_s": ranks_s, "one_process_step_ms": one["step_ms"],
+          "bounds": {"loss": MODEL_TOL, "m_rel_l2": MESH_M_TOL,
+                     "v_rel_l2": MESH_V_TOL, "update": MESH_UPDATE_TOL,
+                     "logits_bf16": max(MODEL_TOL, bf16_bound),
+                     "logits_f32": f"{MESH_F32_TOL} x max(1, |logit|)",
+                     "peak": list(PEAK_SLACK)},
+          "one_process_sdpa_gap": one["sdpa_gap"],
+          "predicted": {k: {f: v[f] for f in (
+              "flops", "flops_by_dtype", "collectives",
+              "collective_bytes_total", "memory", "roofline")}
+              for k, v in pred.items()},
+          "ranks": got, "card": smi_line()})
+    launches = {"gqa_flash_attention": 0, "fused_xent": 0,
+                "fused_score_update": 0}
+    for r, g in enumerate(got):
+        t = g["train"]
+        if not t["selected_equal"]:
+            raise AssertionError(f"mesh: rank {r} selected other rows")
+        if t["loss_err"] > MODEL_TOL:
+            raise AssertionError(f"mesh: rank {r} scoring losses off by "
+                                 f"{t['loss_err']}")
+        if t["m_rel_l2"] > MESH_M_TOL or t["v_rel_l2"] > MESH_V_TOL:
+            raise AssertionError(f"mesh: rank {r} moments off: m by "
+                                 f"{t['m_rel_l2']}, v by {t['v_rel_l2']}")
+        if not t["update_err"] <= MESH_UPDATE_TOL:
+            raise AssertionError(f"mesh: rank {r} weights off AdamW's step "
+                                 f"by {t['update_err']}")
+        for i, (_, rel) in enumerate(g["logit_errs"]):
+            if rel > max(MODEL_TOL, bf16_bound):
+                raise AssertionError(f"mesh: rank {r} bf16 logits of step "
+                                     f"{i} off by {rel} relative (bound "
+                                     f"{max(MODEL_TOL, bf16_bound)})")
+        for e, rel in g["logit_errs_f32"]:
+            if rel > MESH_F32_TOL:
+                raise AssertionError(f"mesh: rank {r} float32 logits off "
+                                     f"by {e} ({rel} relative)")
+        for kind in ("train", "prefill", "decode"):
+            meas, p = g[kind], pred[kind]
+            if meas["flops"] != p["flops"] or \
+                    meas["flops_by_dtype"] != p["flops_by_dtype"]:
+                raise AssertionError(f"mesh: rank {r} {kind} counts "
+                                     f"{meas['flops']} FLOPs, the trace "
+                                     f"{p['flops']}")
+            want_peak = p["memory"]["peak_bytes"]
+            slack = max(PEAK_SLACK[0] * want_peak, PEAK_SLACK[1])
+            if abs(meas["peak_bytes"] - want_peak) > slack:
+                raise AssertionError(f"mesh: rank {r} {kind} peak "
+                                     f"{meas['peak_bytes']} B against "
+                                     f"{want_peak} B predicted")
+            if meas["collectives"] != p["collectives"]:
+                raise AssertionError(f"mesh: rank {r} {kind} collectives "
+                                     f"{meas['collectives']}, the trace "
+                                     f"{p['collectives']}")
+            if meas["launches"] != want_launches[kind]:
+                raise AssertionError(f"mesh: rank {r} {kind} launches "
+                                     f"{meas['launches']}, expected "
+                                     f"{want_launches[kind]}")
+            launches["gqa_flash_attention"] += meas["launches"].get(
+                "gqa_flash_attention", 0)
+            launches["fused_xent"] += meas["launches"].get("xent_partials",
+                                                           0)
+            launches["fused_score_update"] += meas["launches"].get(
+                "fused_score_update", 0)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 12: checkpoint and resume, bitwise, in a deterministic subprocess
 # ---------------------------------------------------------------------------
 
@@ -4134,6 +4630,9 @@ def main() -> None:
     if len(sys.argv) == 5 and sys.argv[1] == "--cluster-child":
         cluster_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return
+    if len(sys.argv) == 5 and sys.argv[1] == "--mesh-child":
+        mesh_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
     if len(sys.argv) > 1:
         sys.exit("usage: chip_smoke.py [--store-bench SRC | --segsum-bench "
                  "SRC | --steps-bench SRC]")
@@ -4161,7 +4660,8 @@ def main() -> None:
             "serve_moe": phase_serve_moe,
             **{p: lambda p=p: phase_engine(p) for p in ENGINE_PATHS},
             "serve_vlm": phase_serve_vlm,
-            "serve_encdec": phase_serve_encdec, "dryrun": phase_dryrun}
+            "serve_encdec": phase_serve_encdec, "dryrun": phase_dryrun,
+            "mesh": phase_mesh}
     for name, run in runs.items():
         for k, v in timed(name, run).items():
             launches[k] = launches.get(k, 0) + v

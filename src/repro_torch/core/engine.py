@@ -44,6 +44,17 @@ returns on the ids' device, the model's, wherever the rows lie. The state
 mutates in place: parameters and optimizer moments in the optimizer, the
 score state in the store kernel. Steps return the state for symmetry with
 the reference.
+
+On a mesh (``ctx``, the reference's ``ShardCtx``: dense models) each rank
+holds its shards of the state and its rows of every batch (over the data
+axes). The scoring forward's losses and the sample ids are all-gathered,
+so every rank updates its copy of the replicated store with the same B
+ids and draws the same Gumbel top-k (the same generator seed); the
+selected rows are taken from the all-gathered batch, b / dp a rank. The
+training loss is the rank's share of the mini-batch mean; the gradients
+of leaves replicated over the data axes are all-reduced over them, those
+FSDP splits were reduce-scattered by their gathers' backward. Packed
+steps are not sharded (nor are the reference's).
 """
 from __future__ import annotations
 
@@ -54,8 +65,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..distributed.compression import ErrorFeedbackState, compress_decompress
+from ..models.layers import ShardCtx
 from ..models.transformer import (init_lm, lm_per_sample_loss,
-                                  lm_per_segment_loss, tree_leaves)
+                                  lm_per_segment_loss, param_axes,
+                                  tree_leaves)
 from ..optim.adamw import OptConfig, OptState, apply_updates, init_opt_state
 from .frequency import ADAPTIVE_DEFAULT_CAP, FreqSchedule
 from .scores import Scores, Store, make_store, weights_from_prev
@@ -142,16 +155,19 @@ def init_train_state(model_cfg: ModelConfig, es_cfg: ESConfig,
                      opt_cfg: OptConfig, seed: int, device="cuda",
                      params: Optional[Dict] = None,
                      store: Optional[Store] = None, *,
-                     meta_batch: int = 1) -> TrainState:
+                     meta_batch: int = 1,
+                     ctx: ShardCtx = ShardCtx()) -> TrainState:
     """Fresh state; ``params`` (e.g. from ``bridge.params_from_jax``)
     replaces the random init. Parameters and selection noise come from two
     generators seeded from ``seed``. The score leaf is ``store``'s;
     ``pending_w`` starts at 1 for each of the ``meta_batch`` rows;
     ``grad_err`` is float32 zeros per parameter when the optimizer
-    compresses its gradients."""
+    compresses its gradients. On a mesh the parameters and moments are
+    this rank's shards; the store, the cadence and ``pending_w`` are
+    replicated."""
     store = store if store is not None else make_store()
     if params is None:
-        params = init_lm(model_cfg, _generator(device, seed), device)
+        params = init_lm(model_cfg, _generator(device, seed), device, ctx)
     sel_gen = _generator(device, seed + 1)
     return TrainState(params=params, opt=init_opt_state(opt_cfg, params),
                       scores=store.init_leaf(es_cfg.n_train, device),
@@ -184,11 +200,17 @@ class ESEngine:
                  opt_cfg: OptConfig, schedule: Callable[[int], float],
                  freq: Optional[FreqSchedule] = None,
                  cadence: Optional[CadenceConfig] = None,
-                 store: Optional[Store] = None):
+                 store: Optional[Store] = None,
+                 ctx: ShardCtx = ShardCtx()):
         self.model_cfg = model_cfg
         self.es_cfg = es_cfg
         self.opt_cfg = opt_cfg
         self.schedule = schedule
+        self.ctx = ctx
+        self.dp = ctx.size("batch")
+        # each leaf's logical axes, for the data-parallel gradient sum and
+        # the clip's norm over shards
+        self._axes = param_axes(model_cfg) if ctx.mesh is not None else None
         self.store = store if store is not None else make_store()
         self.freq = freq or FreqSchedule()
         if cadence is None:
@@ -218,11 +240,44 @@ class ESEngine:
         def loss_fn():
             per_sample, mean = lm_per_sample_loss(
                 self.model_cfg, params, batch,
-                seq_chunk=self.es_cfg.seq_chunk)
+                seq_chunk=self.es_cfg.seq_chunk, ctx=self.ctx)
             if scale is not None:
                 mean = torch.mean(per_sample * scale.to(torch.float32))
+            if self.dp > 1:       # this rank's share of the batch mean
+                mean = mean / self.dp
             return mean, per_sample.detach()
-        return _value_and_grad(params, loss_fn)
+        mean, per_sample, grads = _value_and_grad(params, loss_fn)
+        if self.ctx.mesh is None:
+            return mean, per_sample, grads
+        return (self.ctx.all_reduce(mean, "batch"), per_sample,
+                self._sync_grads(grads))
+
+    def _sync_grads(self, grads: Dict) -> Dict:
+        """Sum each gradient leaf that the data axes replicate over them
+        (an FSDP leaf's gather already reduce-scattered its own)."""
+        dp = set(self.ctx.dims("batch"))
+
+        def fix(g, axes):
+            if isinstance(g, dict):
+                return {k: fix(g[k], axes[k]) for k in g}
+            if any(dp & set(self.ctx.dims(a)) for a in axes):
+                return g
+            return self.ctx.all_reduce(g, "batch")
+        return fix(grads, self._axes) if dp else grads
+
+    def _all_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole meta-batch's rows of a per-row tensor (all-gathered
+        over the data axes)."""
+        return self.ctx.all_gather(t, "batch", 0)
+
+    def _select_rows(self, batch: Batch, idx: torch.Tensor) -> Batch:
+        """The selected rows this rank trains on: its b / dp of ``idx``
+        (global row indices), taken from the all-gathered batch."""
+        if self.dp == 1:
+            return _gather_batch(batch, idx)
+        lo, n = self.ctx.local("batch", idx.shape[0])
+        rows = {k: self._all_rows(v) for k, v in batch.items()}
+        return _gather_batch(rows, idx[lo:lo + n])
 
     def _observe(self, cad: CadenceState, s_prev: torch.Tensor,
                  w_prev: torch.Tensor, losses: torch.Tensor,
@@ -297,16 +352,19 @@ class ESEngine:
         bookkeeping -> (weights, new cadence, meta loss)."""
         with torch.no_grad():
             meta_losses, _ = lm_per_sample_loss(self.model_cfg, state.params,
-                                                batch, scoring=True)
-            w, cad = self._update_store(state, batch["sample_ids"],
-                                        meta_losses)
+                                                batch, scoring=True,
+                                                ctx=self.ctx)
+            meta_losses = self._all_rows(meta_losses)
+            w, cad = self._update_store(
+                state, self._all_rows(batch["sample_ids"]), meta_losses)
         return w, cad, meta_losses.mean()
 
     def _stale_leg(self, state: TrainState, batch: Batch
                    ) -> Tuple[torch.Tensor, CadenceState, torch.Tensor]:
         """Skipped scoring: the last Eq. (3.1) weights of this batch's
         samples; store and cadence untouched."""
-        s_prev, w_prev = self.store.gather(state.scores, batch["sample_ids"])
+        s_prev, w_prev = self.store.gather(
+            state.scores, self._all_rows(batch["sample_ids"]))
         return w_prev, state.cadence, s_prev.mean()
 
     def _optim(self, state: TrainState, grads: Dict,
@@ -326,7 +384,8 @@ class ESEngine:
             grads = _rebuild(grads, iter(out))
         lr_scale = self.schedule(state.opt.step)
         metrics.update(apply_updates(self.opt_cfg, state.params, grads,
-                                     state.opt, lr_scale))
+                                     state.opt, lr_scale, self.ctx,
+                                     self._axes))
         metrics["lr_scale"] = lr_scale
 
     def _scoring_stream(self, state: TrainState, fn: Callable,
@@ -377,12 +436,13 @@ class ESEngine:
         update from the training forward's free per-sample losses."""
         mean, per_sample, grads = self._loss_and_grads(state.params, batch)
         metrics = {"loss": mean,
-                   "bp_samples": float(batch["tokens"].shape[0]),
+                   "bp_samples": float(batch["tokens"].shape[0] * self.dp),
                    "scored": 0.0}
         # the store reads the pre-update step, as the reference does
         with torch.no_grad():
-            _, cad = self._update_store(state, batch["sample_ids"],
-                                        per_sample)
+            _, cad = self._update_store(
+                state, self._all_rows(batch["sample_ids"]),
+                self._all_rows(per_sample))
         self._optim(state, grads, metrics)
         state.cadence = self._settle(cad)
         return state, metrics
@@ -393,14 +453,14 @@ class ESEngine:
         """Paper-faithful serial ES: score the meta-batch, update the store,
         select b of B, train on them. ``gumbel`` injects the selection
         noise (B,) instead of drawing it from the state's generator."""
-        B = batch["tokens"].shape[0]
+        B = batch["tokens"].shape[0] * self.dp
         b = min(self.es_cfg.minibatch, B)
         if b >= B:
             return self.baseline_step(state, batch)
         w, cad, meta_loss = self._score_leg(state, batch)
         idx = select_minibatch(self.es_cfg.method, w, b, store=self.store,
                                generator=state.generator, gumbel=gumbel)
-        sel = _gather_batch(batch, idx)
+        sel = self._select_rows(batch, idx)
         mean, _, grads = self._loss_and_grads(state.params, sel)
         metrics = {"loss": meta_loss, "sel_loss": mean,
                    "bp_samples": float(b), "w_mean": w.mean(),
@@ -415,7 +475,7 @@ class ESEngine:
         """Decimated ES: the scoring leg runs on the steps the cadence
         fires (static schedule or drift servo); in between, selection uses
         the stale weights."""
-        B = batch["tokens"].shape[0]
+        B = batch["tokens"].shape[0] * self.dp
         b = min(self.es_cfg.minibatch, B)
         if b >= B:
             return self.baseline_step(state, batch)
@@ -426,7 +486,7 @@ class ESEngine:
         w, cad, meta_loss = leg(state, batch)
         idx = select_minibatch(self.es_cfg.method, w, b, store=self.store,
                                generator=state.generator, gumbel=gumbel)
-        sel = _gather_batch(batch, idx)
+        sel = self._select_rows(batch, idx)
         mean, _, grads = self._loss_and_grads(state.params, sel)
         metrics = {"loss": meta_loss if do_score else mean, "sel_loss": mean,
                    "bp_samples": float(b), "w_mean": w.mean(),
@@ -452,7 +512,7 @@ class ESEngine:
         scoring leg before AdamW, which updates the parameters the leg
         reads in place."""
         cur, nxt = batches
-        B = cur["tokens"].shape[0]
+        B = cur["tokens"].shape[0] * self.dp
         b = min(self.es_cfg.minibatch, B)
         if b >= B:
             # no sub-selection: scoring rides the training forward
@@ -467,7 +527,7 @@ class ESEngine:
         idx = select_minibatch(self.es_cfg.method, state.pending_w, b,
                                store=self.store, generator=state.generator,
                                gumbel=gumbel)
-        sel = _gather_batch(cur, idx)
+        sel = self._select_rows(cur, idx)
         mean, _, grads = self._loss_and_grads(state.params, sel)
         self._join(done)
         metrics = {"loss": nxt_loss if do_score else mean, "sel_loss": mean,
@@ -484,7 +544,7 @@ class ESEngine:
         first meta-batch. No optimizer update. The firing is backdated one
         step, so a period-1 cadence still scores the first pipelined step
         (which runs at the same optimizer step)."""
-        B = batch["tokens"].shape[0]
+        B = batch["tokens"].shape[0] * self.dp
         if min(self.es_cfg.minibatch, B) >= B:
             return state        # baseline steps: nothing to prime
         w, cad, _, done = self._scoring_stream(
@@ -500,14 +560,14 @@ class ESEngine:
                    ) -> Tuple[TrainState, Dict]:
         """Train only (pipelined epoch end): the held meta-batch with its
         carried weights; no next batch, so no scoring leg."""
-        B = batch["tokens"].shape[0]
+        B = batch["tokens"].shape[0] * self.dp
         b = min(self.es_cfg.minibatch, B)
         if b >= B:
             return self.baseline_step(state, batch)
         idx = select_minibatch(self.es_cfg.method, state.pending_w, b,
                                store=self.store, generator=state.generator,
                                gumbel=gumbel)
-        sel = _gather_batch(batch, idx)
+        sel = self._select_rows(batch, idx)
         mean, _, grads = self._loss_and_grads(state.params, sel)
         metrics = {"loss": mean, "sel_loss": mean, "bp_samples": float(b),
                    "scored": 0.0, "selected": idx}
@@ -527,6 +587,9 @@ class ESEngine:
         is keyed by global document ids (``batch["doc_ids"]``); empty or
         pruned slots carry -1, which the stores drop.
         """
+        if self.ctx.mesh is not None:
+            raise NotImplementedError("packed steps on a mesh: the "
+                                      "reference shards no packed step")
         doc_ids = batch["doc_ids"]                       # (B, M)
         n = doc_ids.numel()
         flat_ids = doc_ids.reshape(n)
@@ -765,7 +828,7 @@ class EpochSession:
         if not self.pipelined:
             return eng.scheduled_step(state, batch)
         if self._held is None:
-            B = batch["tokens"].shape[0]
+            B = batch["tokens"].shape[0] * eng.dp
             if min(eng.es_cfg.minibatch, B) < B:
                 self.scoring_primes += 1   # b >= B primes are no-ops
             state = eng.prime_step(state, batch)

@@ -168,8 +168,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int lane = tid & 31;
     const int t = lane & 3;
     const int r0 = m0 + wg * 64 + (tid >> 5) * 16 + (lane >> 2);
-    const int lab0 = r0 < M ? labels[r0] : -1;
-    const int lab1 = r0 + 8 < M ? labels[r0 + 8] : -1;
+    // a label outside [0, V) (a vocabulary slice's other columns) matches
+    // no column, a padded one past V included: its correct logit stays 0
+    const int lab0 = r0 < M && labels[r0] < V ? labels[r0] : -1;
+    const int lab1 = r0 + 8 < M && labels[r0 + 8] < V ? labels[r0 + 8] : -1;
     float m_0 = M_INIT, l_0 = 0.f, c_0 = 0.f;
     float m_1 = M_INIT, l_1 = 0.f, c_1 = 0.f;
     float acc[128];

@@ -12,11 +12,13 @@ test and works out none of ``report``'s arguments.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List
 
 import torch
 
 SINKS: List = []   # counters listening (launch/cost.py:CostCounter)
+QUIET = [0]        # > 0 while a collective moves its data (unseen work)
 
 
 def nbytes(*tensors: torch.Tensor) -> int:
@@ -29,3 +31,14 @@ def report(name: str, flops: float, dtype: torch.dtype,
     (0 for a kernel without products) and ``n_bytes`` of memory traffic."""
     for sink in SINKS:
         sink.kernel(name, flops, dtype, n_bytes)
+
+
+@contextlib.contextmanager
+def quiet():
+    """Hide the ops inside from the counters: a collective's transport
+    (``distributed/collectives.py``), which reports itself."""
+    QUIET[0] += 1
+    try:
+        yield
+    finally:
+        QUIET[0] -= 1

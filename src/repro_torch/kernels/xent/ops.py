@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
 
@@ -23,6 +23,9 @@ from .. import dry, on_card_route
 from .._build import check, library, on_device
 from .._cost import SINKS, nbytes, report
 from .ref import xent_combine_ref, xent_partials_ref, xent_ref
+
+if TYPE_CHECKING:
+    from ...models.layers import ShardCtx
 
 BM, BN = 128, 256   # the partials kernel's row tile and vocab tile
 # a block's pipeline fill, in vocab tiles: its 4-stage ring of 64-deep k
@@ -146,18 +149,24 @@ def xent_combine(part: torch.Tensor) -> torch.Tensor:
     return nll
 
 
+def plan_span(h: torch.Tensor, V: int) -> int:
+    """The split span of h (M, d) against V vocabulary columns on h's
+    card (132 SMs on ``meta``)."""
+    if dry(h):
+        num_sms = H100_SMS
+    else:
+        library()  # builds (or raises) before the device is queried
+        num_sms = _num_sms(h.device.index)
+    return vocab_split(h.shape[0], V, num_sms)[1]
+
+
 def fused_xent(h: torch.Tensor, w: torch.Tensor,
                labels: torch.Tensor) -> torch.Tensor:
     """h (M, d); w (V, d); labels (M,) in [0, V) -> nll (M,) float32."""
     if h.device.type == "cpu":
         return xent_ref(h, w, labels)
     _validate(h, w, labels)
-    if dry(h):
-        num_sms = H100_SMS
-    else:
-        library()  # builds (or raises) before the device is queried
-        num_sms = _num_sms(h.device.index)
-    _, span = vocab_split(h.shape[0], w.shape[0], num_sms)
+    span = plan_span(h, w.shape[0])
     nll = xent_combine(xent_partials(h, w, labels, span))
     if not dry(h):
         fused_xent.launches += 1
@@ -170,14 +179,29 @@ fused_xent.launches = 0
 
 
 def per_sample_xent_fused(h: torch.Tensor, w: torch.Tensor,
-                          labels: torch.Tensor, *, label_mask_value: int = -1
+                          labels: torch.Tensor, *, label_mask_value: int = -1,
+                          ctx: Optional["ShardCtx"] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """h (B, S, d); w (V, d); labels (B, S) -> (per_sample (B,), mean ())."""
+    """h (B, S, d); w (V, d); labels (B, S) -> (per_sample (B,), mean ()).
+
+    With a ``ctx`` (``models.layers.ShardCtx``) whose "vocab" axis splits
+    the vocabulary, w is this rank's (V / m, d) rows: ``xent_partials``
+    on them with the labels shifted by the slice's offset (a label outside
+    it adds nothing), the partials all-gathered over "vocab", one
+    ``xent_combine`` (rank-major)."""
     B, S, d = h.shape
     mask = labels != label_mask_value
     safe = torch.where(mask, labels, torch.zeros_like(labels))
-    nll = fused_xent(h.reshape(B * S, d).contiguous(), w,
-                     safe.reshape(B * S).to(torch.int32).contiguous())
+    h2 = h.reshape(B * S, d).contiguous()
+    if ctx is None or ctx.size("vocab") == 1:
+        nll = fused_xent(h2, w, safe.reshape(B * S).to(torch.int32)
+                         .contiguous())
+    else:
+        lo, n = ctx.local("vocab", w.shape[0] * ctx.size("vocab"))
+        local = (safe - lo).reshape(B * S).to(torch.int32).contiguous()
+        span = plan_span(h2, n) if on_card_route(h2) else n
+        part = xent_partials(h2, w, local, span)
+        nll = xent_combine(ctx.all_gather(part, "vocab", 1).contiguous())
     nll = nll.reshape(B, S) * mask.to(torch.float32)
     counts = torch.clamp(mask.sum(dim=-1).to(torch.float32), min=1.0)
     per_sample = nll.sum(dim=-1) / counts

@@ -27,7 +27,8 @@ def xent_partials_ref(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                       span: int) -> torch.Tensor:
     """-> (M, n_split, 3) f32 over splits of ``span`` vocab columns
     (n_split = ceil(V / span)): max logit, sum of exp(logit - max), and the
-    label's logit (0 where the label lies in another split)."""
+    label's logit (0 where the label lies in another split, or outside
+    [0, V): another rank's slice of a split vocabulary)."""
     logits = h.float() @ w.float().t()
     M, V = logits.shape
     n_split = -(-V // span)
@@ -36,7 +37,10 @@ def xent_partials_ref(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     m = x.amax(dim=-1)
     l = torch.exp(x - m[..., None]).sum(dim=-1)
     lab = labels.long()[:, None]
-    c = torch.zeros_like(m).scatter_(1, lab // span, logits.gather(1, lab))
+    live = (lab >= 0) & (lab < V)
+    lab = torch.where(live, lab, torch.zeros_like(lab))
+    c = torch.zeros_like(m).scatter_(
+        1, lab // span, logits.gather(1, lab) * live.to(logits.dtype))
     return torch.stack([m, l, c], dim=-1)
 
 

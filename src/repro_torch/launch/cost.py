@@ -36,17 +36,27 @@ Each hand-written kernel reports its own work through
 attention dots), xent's partials 2 M V d; bytes are each kernel's inputs
 read once and outputs written once.
 
+Collectives (``distributed/collectives.py``) report themselves, as the
+kernels do: each one's kind and result buffer's bytes per device, the
+reference's ``hlo_analysis.collective_bytes`` rule, and the mesh axes it
+runs over. The work that moves their data is not counted (``_cost.quiet``).
+
 ``roofline_terms`` keeps the reference's keys, for one H100 SXM: 989
 TFLOP/s bfloat16 (float16 alike), 67 TFLOP/s float32 (TF32 is off for
-matmuls in PyTorch), 3.35 TB/s of HBM; one card has no collectives, so
-``collective_s`` is 0.
+matmuls in PyTorch), 3.35 TB/s of HBM. ``collective_s`` is each axis's
+collective bytes over its link rate, summed: the mesh laid out with
+"model" innermost on 8-GPU HGX H100 nodes, an axis whose span (its size
+times the sizes of the axes inside it) is at most 8 GPUs stays inside a
+node on NVLink 4 (``NVLINK_BW``), a wider one crosses nodes over NDR
+InfiniBand (``IB_BW``). Both rates are published specifications, not
+measurements.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import weakref
-from typing import Any, Dict, Iterable
+from typing import Any, Dict, Iterable, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -57,6 +67,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12, torch.float64: 67e12}
 HBM_BW = 3.35e12          # bytes/s
 CARD_BYTES = 80 * 10**9   # one H100's device memory
+# link rates a direction a GPU (specifications): NVLink 4 inside an
+# 8-GPU HGX H100 node (NVIDIA's HGX H100 data sheet: 900 GB/s both
+# directions), and one 400 Gb/s NDR InfiniBand adapter a GPU between nodes
+NVLINK_BW = 450e9
+IB_BW = 50e9
+NODE_GPUS = 8
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
+                    "all-to-all", "collective-permute")
 
 aten = torch.ops.aten
 
@@ -136,6 +154,9 @@ class CostCounter(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self._alive: Dict[int, int] = {}
+        self.collectives = {k: {"count": 0, "bytes": 0}
+                            for k in COLLECTIVE_KINDS}
+        self.collective_axes: collections.Counter = collections.Counter()
 
     def __enter__(self):
         _cost.SINKS.append(self)
@@ -156,6 +177,16 @@ class CostCounter(TorchDispatchMode):
         if flops:
             self.flops[dtype] += flops
         self.bytes += n_bytes
+
+    def collective(self, kind: str, n_bytes: int, axes) -> None:
+        """A collective's own report (``distributed/collectives.py``)."""
+        self.collectives[kind]["count"] += 1
+        self.collectives[kind]["bytes"] += n_bytes
+        self.collective_axes[tuple(axes)] += n_bytes
+
+    @property
+    def collective_bytes(self) -> int:
+        return sum(v["bytes"] for v in self.collectives.values())
 
     def _track(self, ins: Iterable[torch.Tensor],
                outs: Iterable[torch.Tensor]) -> None:
@@ -179,6 +210,8 @@ class CostCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if _cost.QUIET[0]:
+            return out
         ins = _tensors(args, kwargs.values())
         outs = _tensors(out if isinstance(out, (list, tuple)) else (out,))
         if all(t.device.type == "cpu" for t in ins + outs):
@@ -221,8 +254,26 @@ def _op_bytes(func, packet, args, ins, outs) -> int:
             + sum(tensor_bytes(t) for t in outs))
 
 
+def link_bw(mesh_info: Dict[str, Any], axes) -> float:
+    """The link rate of a collective over mesh ``axes``: NVLink when the
+    outermost of them spans at most one node, else InfiniBand."""
+    names, shape = mesh_info["axis_names"], mesh_info["shape"]
+    outer = min(names.index(a) for a in axes)
+    span = 1
+    for n in shape[outer:]:
+        span *= n
+    return NVLINK_BW if span <= NODE_GPUS else IB_BW
+
+
+def collective_seconds(mesh_info: Dict[str, Any],
+                       bytes_by_axes: Dict[tuple, int]) -> float:
+    return sum(n / link_bw(mesh_info, axes)
+               for axes, n in bytes_by_axes.items() if axes)
+
+
 def roofline_terms(*, flops_by_dtype: Dict[torch.dtype, float],
-                   bytes_per_chip: float) -> Dict[str, Any]:
+                   bytes_per_chip: float,
+                   collective_s: float = 0.0) -> Dict[str, Any]:
     """The reference's three terms (seconds) and the dominant one, for
     one H100: compute is each dtype's FLOPs over its peak, summed."""
     compute = sum(f / PEAK_FLOPS.get(dt, PEAK_FLOPS[torch.float32])
@@ -230,7 +281,7 @@ def roofline_terms(*, flops_by_dtype: Dict[torch.dtype, float],
     terms: Dict[str, Any] = {
         "compute_s": compute,
         "memory_s": bytes_per_chip / HBM_BW,
-        "collective_s": 0.0,
+        "collective_s": collective_s,
     }
     dom = max(("compute_s", "memory_s", "collective_s"), key=terms.get)
     terms["bottleneck"] = dom.replace("_s", "")
@@ -241,9 +292,13 @@ def roofline_terms(*, flops_by_dtype: Dict[torch.dtype, float],
     return terms
 
 
-def summary(counter: CostCounter, args_bytes: int) -> Dict[str, Any]:
-    """The counter's numbers as the dry run reports them."""
+def summary(counter: CostCounter, args_bytes: int,
+            mesh_info: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """The counter's numbers as the dry run reports them (per device on
+    a mesh: one rank's)."""
     peak = args_bytes + counter.peak
+    coll_s = (collective_seconds(mesh_info, counter.collective_axes)
+              if mesh_info else 0.0)
     return {
         "flops": counter.total_flops,
         "flops_by_dtype": {str(dt).replace("torch.", ""): f
@@ -256,6 +311,10 @@ def summary(counter: CostCounter, args_bytes: int) -> Dict[str, Any]:
                    "step_high_water_bytes": counter.peak,
                    "peak_bytes": peak},
         "fits_one_card": peak <= CARD_BYTES,
+        "collectives": {k: dict(v) for k, v in counter.collectives.items()
+                        if v["count"]},
+        "collective_bytes_total": counter.collective_bytes,
         "roofline": roofline_terms(flops_by_dtype=counter.flops,
-                                   bytes_per_chip=counter.bytes),
+                                   bytes_per_chip=counter.bytes,
+                                   collective_s=coll_s),
     }

@@ -1,15 +1,28 @@
-"""Dry run on one H100: trace every (arch x shape x variant) cell on the
-``meta`` device and report its work (counterpart of
+"""Dry run on H100s: trace every (arch x shape x mesh x variant) cell on
+the ``meta`` device and report its work per device (counterpart of
 ``repro/launch/dryrun.py``).
 
-A cell is one card. Its step runs on ``meta`` tensors along the route the
-card runs: every hand-written kernel takes its ``meta`` route (its shape
-function: empty outputs of the kernel's shapes, no launch), so nothing is
+A cell's step runs on ``meta`` tensors along the route the card runs:
+every hand-written kernel takes its ``meta`` route (its shape function:
+empty outputs of the kernel's shapes, no launch), so nothing is
 allocated and nothing launches, and no GPU is needed. ``launch/cost.py``
-counts the trace: FLOPs by dtype, bytes, the peak of live memory, and the
-roofline terms of one H100. The reference's XLA parts have no
-counterpart here: the 512 placeholder devices, the pod meshes, the
-collectives and the HLO text (the port shards no model).
+counts the trace: FLOPs by dtype, bytes, the peak of live memory,
+collective bytes, and the roofline terms of one H100.
+
+Meshes (``--mesh``): ``single`` (16 x 16, "data" x "model") and ``multi``
+(2 x 16 x 16, "pod" x "data" x "model"), the reference's, and ``card``
+(one H100, no mesh: the trace that ``chip_smoke.py`` phase ``dryrun``
+holds to the card). On a mesh the process joins a fake process group of
+the mesh's size (``torch.testing._internal.distributed.fake_pg``,
+PyTorch's own test helper, imported only here: its collectives move
+nothing, and the port's own collectives return empty ``meta`` results)
+and traces rank 0's SPMD program: its shards of the parameters,
+optimizer state and cache (the reference's rules, ``distributed/
+sharding.py``), its rows of the batch, and the collectives it calls.
+Every rule shards evenly (a cell that does not is refused with the
+reason), so every rank runs the same shapes and rank 0 stands for every
+device. The reference's HLO text parsing has no counterpart: the
+collectives report themselves.
 
   train   : ``ESEngine.es_step`` / ``baseline_step`` / ``pipelined_step``
             (the variant's ``step``) on a meta-batch of ``global_batch``
@@ -28,20 +41,24 @@ the prediction by up to the scoring leg's transient.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --shape train_4k
-  python -m repro_torch.launch.dryrun --all [--variant es] [--force]
+  python -m repro_torch.launch.dryrun --all --mesh both [--variant es]
+  python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b \
+      --shape train_4k --mesh card           # one H100, no mesh
   python -m repro_torch.launch.dryrun --list
 
-One JSON a cell under ``experiments/dryrun_torch/`` (``--out``).
+One JSON a cell, ``{arch}__{shape}__{mesh}__{variant}.json``, under
+``experiments/dryrun_torch/`` (``--out``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
 import traceback
 from pathlib import Path
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -49,12 +66,14 @@ from ..configs.base import (ALL_SHAPES, ModelConfig, ShapeConfig,
                             cell_is_applicable, shape_by_name)
 from ..configs.registry import get_config, list_archs
 from ..core.engine import ESConfig, ESEngine, init_train_state
-from ..models.model import (decode_step, encoder_len, image_tokens,
-                            init_cache, prefill)
-from ..models.transformer import init_lm
+from ..distributed.sharding import check_even, make_ctx
+from ..models.model import (cache_axes, decode_step, encoder_len,
+                            image_tokens, init_cache, prefill)
+from ..models.transformer import MESH_LATER, init_lm, param_axes
 from ..optim.adamw import OptConfig
 from ..optim.schedule import get_schedule
 from .cost import CostCounter, summary, tree_bytes
+from .mesh import make_mesh, mesh_info, production_shape
 
 DEFAULT_OUT = (Path(__file__).resolve().parents[3] / "experiments"
                / "dryrun_torch")
@@ -110,13 +129,22 @@ VARIANTS: Dict[str, Variant] = {
 SHARDING_FIELDS = ("fsdp_params", "moe_sharding", "shard_kv_heads")
 
 
-def refusal(variant_name: str) -> Optional[str]:
-    """Why the port refuses a variant, or None."""
+def refusal(variant_name: str, cfg: Optional[ModelConfig] = None,
+            on_mesh: bool = False) -> Optional[str]:
+    """Why the port refuses a variant (on one card, or on a mesh for
+    ``cfg``'s family), or None."""
     fields = [f for f, _ in VARIANTS[variant_name].cfg_replace
               if f in SHARDING_FIELDS]
-    if fields:
-        return (f"variant {variant_name} sets {', '.join(fields)}: the port "
-                f"shards no model (a cell is one card)")
+    if not on_mesh:
+        if fields:
+            return (f"variant {variant_name} sets {', '.join(fields)}: a "
+                    f"one-card cell shards no model (--mesh single or "
+                    f"multi)")
+        return None
+    if "moe_sharding" in fields or variant_name.startswith("moe"):
+        return f"variant {variant_name}: {MESH_LATER['moe']}"
+    if cfg is not None and cfg.family != "dense":
+        return f"{cfg.name}: {MESH_LATER[cfg.family]}"
     return None
 
 
@@ -181,14 +209,26 @@ class Prepared:
     tokens_bp: int
 
 
+def mesh_kind(shape: ShapeConfig) -> str:
+    """The rules' kind of a cell (``make_rules``): long_500k is "long"."""
+    return "long" if shape.name == "long_500k" else shape.kind
+
+
 def prepare(cfg: ModelConfig, shape: ShapeConfig,
             variant: Variant = VARIANTS["es"], device="meta", *,
-            minibatch: Optional[int] = None) -> Prepared:
+            minibatch: Optional[int] = None, mesh=None,
+            params: Optional[Dict] = None,
+            batch: Optional[Dict[str, torch.Tensor]] = None) -> Prepared:
     """Build a cell's state, batch (or cache) and step on ``device``;
-    ``minibatch`` replaces ``global_batch x minibatch_frac``."""
+    ``minibatch`` replaces ``global_batch x minibatch_frac``. On a
+    ``mesh`` this rank's part: its shards of the state and cache (the
+    reference's rules for the cell's kind) and its rows of the batch.
+    ``params`` and ``batch`` (this rank's) replace the random ones."""
     device = torch.device(device)
     cfg, es_kw, frac = apply_variant(cfg, variant)
+    ctx = make_ctx(cfg, mesh, mesh_kind(shape))
     B, S = shape.global_batch, shape.seq_len
+    Bl = ctx.local("batch", B)[1]
     gen = (None if device.type == "meta"
            else torch.Generator(device=device).manual_seed(SEED))
     if shape.kind == "train":
@@ -197,12 +237,14 @@ def prepare(cfg: ModelConfig, shape: ShapeConfig,
                           seq_chunk=es_kw.pop("seq_chunk", SEQ_CHUNK),
                           **es_kw)
         opt_cfg = OptConfig(state_dtype=cfg.optimizer_dtype)
-        engine = ESEngine(cfg, es_cfg, opt_cfg, get_schedule("constant", 1))
+        engine = ESEngine(cfg, es_cfg, opt_cfg, get_schedule("constant", 1),
+                          ctx=ctx)
         state = init_train_state(cfg, es_cfg, opt_cfg, SEED, device,
-                                 meta_batch=B)
-        batch = make_batch(cfg, B, S, device, gen)
+                                 params=params, meta_batch=B, ctx=ctx)
+        batch = batch if batch is not None else make_batch(
+            cfg, Bl, S, device, gen)
         if variant.step == "pipelined":
-            nxt = make_batch(cfg, B, S, device, gen)
+            nxt = make_batch(cfg, Bl, S, device, gen)
             fn = lambda: engine.pipelined_step(state, (batch, nxt))  # noqa
             batches: Tuple = (batch, nxt)
         else:
@@ -214,71 +256,152 @@ def prepare(cfg: ModelConfig, shape: ShapeConfig,
         return Prepared(fn, (state.params, state.opt, state.scores,
                              state.pending_w, state.cadence, *batches),
                         B * S, bp)
-    params = init_lm(cfg, gen, device)
-    cache = init_cache(cfg, B, S, device=device)
+    if params is None:
+        params = init_lm(cfg, gen, device, ctx)
+    cache = init_cache(cfg, B, S, device=device, ctx=ctx)
     if shape.kind == "prefill":
-        batch = make_batch(cfg, B, S, device, gen, train=False)
-        return Prepared(lambda: prefill(cfg, params, batch, cache),
+        batch = batch if batch is not None else make_batch(
+            cfg, Bl, S, device, gen, train=False)
+        return Prepared(lambda: prefill(cfg, params, batch, cache, ctx),
                         (params, batch, cache), B * S, 0)
-    tokens = make_batch(cfg, B, 1, device, gen, train=False)["tokens"]
+    tokens = batch["tokens"] if batch is not None else make_batch(
+        cfg, Bl, 1, device, gen, train=False)["tokens"]
     pos = torch.full((1,), S - 1, dtype=torch.long, device=device)
-    return Prepared(lambda: decode_step(cfg, params, tokens, cache, pos),
+    return Prepared(lambda: decode_step(cfg, params, tokens, cache, pos,
+                                        ctx),
                     (params, tokens, cache, pos), B, 0)
 
 
-def count(prepared: Prepared) -> Dict[str, Any]:
-    """Run the cell's step once under the cost counter -> its summary."""
+def count(prepared: Prepared, info: Optional[Dict] = None
+          ) -> Dict[str, Any]:
+    """Run the cell's step once under the cost counter -> its summary
+    (``info``: the mesh's, for the collective term)."""
     args_bytes = tree_bytes(*prepared.args)
     with CostCounter() as counter:
         out = prepared.step()
     del out
-    return summary(counter, args_bytes)
+    return summary(counter, args_bytes, info)
 
 
 # ---------------------------------------------------------------------------
 # Cells
 # ---------------------------------------------------------------------------
 
-def run_cell(arch: str, shape_name: str, variant_name: str = "es"
+@contextlib.contextmanager
+def fake_group(n: int):
+    """A fake default process group of ``n`` ranks, this process rank 0
+    (PyTorch's test helper ``FakeStore`` / backend "fake", imported only
+    here: a dry run's group moves nothing). Torn down on exit, so a
+    process can trace several meshes one after another."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: Sequence[int], names: Sequence[str]):
+    """A mesh of ``shape`` over a fake group of its size (``fake_group``)."""
+    n = 1
+    for x in shape:
+        n *= x
+    with fake_group(n):
+        yield make_mesh(shape, names)
+
+
+def uneven(cfg: ModelConfig, shape: ShapeConfig, b: int, ctx
+           ) -> Optional[str]:
+    """Why a cell's parameters, cache or batch do not split evenly under
+    ``ctx`` (the batch and the minibatch over the data axes), or None."""
+    params = init_lm(cfg, None, "meta")
+    shapes = {"params": _shapes(params)}
+    axes = {"params": param_axes(cfg)}
+    if shape.kind != "train":
+        shapes["cache"] = _shapes(init_cache(cfg, shape.global_batch,
+                                             shape.seq_len, device="meta"))
+        axes["cache"] = cache_axes(cfg)
+    why = check_even(shapes, axes, ctx)
+    dp = ctx.size("batch")
+    rows = [shape.global_batch] + ([b] if shape.kind == "train" else [])
+    bad = [f"batch {n} over {dp}" for n in rows if n % dp]
+    return "; ".join(([why] if why else []) + bad) or None
+
+
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return tuple(tree.shape)
+
+
+def run_cell(arch: str, shape_name: str, variant_name: str = "es",
+             mesh: str = "card", mesh_shape: Optional[Sequence[int]] = None
              ) -> Dict[str, Any]:
-    """One (arch x shape x variant) cell traced on ``meta``: the
-    reference's keys, per card, and ``fits_one_card``."""
+    """One (arch x shape x mesh x variant) cell traced on ``meta``: the
+    reference's keys, per device, and ``fits_one_card``. ``mesh`` is
+    "card" (one H100, no mesh), "single" or "multi" (the reference's), or
+    any name with an explicit ``mesh_shape`` (("data", "model"), or
+    ("pod", "data", "model") for three dims)."""
     shape = shape_by_name(shape_name)
     variant = VARIANTS[variant_name]
-    cfg, _, _ = apply_variant(get_config(arch), variant)
+    cfg, _, frac = apply_variant(get_config(arch), variant)
+    on_mesh = mesh != "card"
     result: Dict[str, Any] = {
-        "arch": arch, "shape": shape_name, "mesh": "single",
+        "arch": arch, "shape": shape_name, "mesh": mesh,
         "variant": variant_name, "kind": shape.kind,
         "params": cfg.n_params(), "active_params": cfg.n_active_params(),
     }
-    why = refusal(variant_name)
-    if why:
-        result["refused"] = why
-        return result
     ok, why = cell_is_applicable(cfg, shape)
     if not ok:
         result["skipped"] = why
         return result
-    result["mesh_info"] = dict(MESH_INFO)
+    why = refusal(variant_name, cfg, on_mesh)
+    if why:
+        result["refused"] = why
+        return result
     t0 = time.time()
-    prepared = prepare(get_config(arch), shape, variant)
-    result["tokens_meta"] = prepared.tokens_meta
-    result["tokens_bp"] = prepared.tokens_bp
-    result.update(count(prepared))
-    result["collectives"] = {}
-    result["collective_bytes_total"] = 0
+    if not on_mesh:
+        result["mesh_info"] = dict(MESH_INFO)
+        prepared = prepare(get_config(arch), shape, variant)
+        result["tokens_meta"] = prepared.tokens_meta
+        result["tokens_bp"] = prepared.tokens_bp
+        result.update(count(prepared))
+        result["trace_s"] = time.time() - t0
+        return result
+    if mesh_shape is not None:
+        dims = tuple(mesh_shape)
+        names = production_shape(multi_pod=len(dims) == 3)[1]
+    else:
+        dims, names = production_shape(multi_pod=mesh == "multi")
+    with fake_mesh(dims, names) as m:
+        info = mesh_info(m)
+        result["mesh_info"] = info
+        ctx = make_ctx(cfg, m, mesh_kind(shape))
+        why = uneven(cfg, shape, max(1, int(shape.global_batch * frac)), ctx)
+        if why:
+            result["refused"] = f"does not split evenly: {why}"
+            return result
+        prepared = prepare(get_config(arch), shape, variant, mesh=m)
+        result["tokens_meta"] = prepared.tokens_meta
+        result["tokens_bp"] = prepared.tokens_bp
+        result.update(count(prepared, info))
     result["trace_s"] = time.time() - t0
     return result
 
 
-def cell_path(out_dir: Path, arch: str, shape: str, variant: str) -> Path:
-    return out_dir / f"{arch}__{shape}__{variant}.json"
+def cell_path(out_dir: Path, arch: str, shape: str, mesh: str,
+              variant: str) -> Path:
+    return out_dir / f"{arch}__{shape}__{mesh}__{variant}.json"
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="single",
+                    choices=["single", "multi", "both", "card"])
     ap.add_argument("--variant", default="es", choices=sorted(VARIANTS))
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--list", action="store_true")
@@ -297,6 +420,7 @@ def main(argv=None) -> None:
 
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     if args.all:
         cells = [(a, s.name) for a in list_archs() for s in ALL_SHAPES]
     else:
@@ -304,30 +428,39 @@ def main(argv=None) -> None:
             ap.error("--arch and --shape, or --all")
         cells = [(args.arch, args.shape)]
 
+    t_all = time.time()
     for arch, shape in cells:
-        path = cell_path(out_dir, arch, shape, args.variant)
-        if path.exists() and not args.force:
-            print(f"[skip cached] {path.name}")
-            continue
-        print(f"[run] {arch} x {shape} x {args.variant}", flush=True)
-        try:
-            res = run_cell(arch, shape, args.variant)
-        except Exception as e:
-            res = {"arch": arch, "shape": shape, "variant": args.variant,
-                   "error": repr(e), "traceback": traceback.format_exc()}
-            print(f"[FAIL] {path.name}: {e!r}", flush=True)
-        path.write_text(json.dumps(res, indent=1, default=str))
-        for key in ("refused", "skipped"):
-            if key in res:
-                print(f"  -> {key}: {res[key]}", flush=True)
-        rt = res.get("roofline")
-        if rt:
-            print(f"  -> flops={res['flops']:.4e} bytes={res['bytes']:.4e} "
-                  f"peak={res['memory']['peak_bytes']:.4e} "
-                  f"fits={res['fits_one_card']} "
-                  f"compute={rt['compute_s']:.4f}s "
-                  f"memory={rt['memory_s']:.4f}s "
-                  f"bottleneck={rt['bottleneck']}", flush=True)
+        for mesh in meshes:
+            path = cell_path(out_dir, arch, shape, mesh, args.variant)
+            if path.exists() and not args.force:
+                print(f"[skip cached] {path.name}")
+                continue
+            print(f"[run] {arch} x {shape} x {mesh} x {args.variant}",
+                  flush=True)
+            try:
+                res = run_cell(arch, shape, args.variant, mesh)
+            except Exception as e:
+                res = {"arch": arch, "shape": shape, "mesh": mesh,
+                       "variant": args.variant, "error": repr(e),
+                       "traceback": traceback.format_exc()}
+                print(f"[FAIL] {path.name}: {e!r}", flush=True)
+            path.write_text(json.dumps(res, indent=1, default=str))
+            for key in ("refused", "skipped"):
+                if key in res:
+                    print(f"  -> {key}: {res[key]}", flush=True)
+            rt = res.get("roofline")
+            if rt:
+                print(f"  -> flops={res['flops']:.4e} "
+                      f"bytes={res['bytes']:.4e} "
+                      f"coll={res['collective_bytes_total']:.4e} "
+                      f"peak={res['memory']['peak_bytes']:.4e} "
+                      f"fits={res['fits_one_card']} "
+                      f"compute={rt['compute_s']:.4f}s "
+                      f"memory={rt['memory_s']:.4f}s "
+                      f"collective={rt['collective_s']:.4f}s "
+                      f"bottleneck={rt['bottleneck']}", flush=True)
+    print(f"[done] {len(cells) * len(meshes)} cells in "
+          f"{time.time() - t_all:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

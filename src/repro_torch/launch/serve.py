@@ -23,6 +23,12 @@ before any noise (``stub_inputs``), unless the caller gives them
 (``generate(aux=...)``). The CLI prints one JSON
 object: ``wall_s`` and ``tokens_per_s`` of a second ``generate`` (the
 first warms up), and row 0's tokens.
+
+On a mesh (``Server(ctx=...)``, the reference's ``ShardCtx``; the dense
+family) each rank holds its shards of the parameters and the cache and
+serves its rows of the prompt batch; the logits are gathered over the
+vocabulary, each row's noise is its row of one (B, V) draw, and
+``generate`` returns every row on every rank.
 """
 from __future__ import annotations
 
@@ -36,9 +42,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..configs.registry import get_config, get_smoke_config, list_archs
+from ..models.layers import ShardCtx
 from ..models.model import (decode_step, encoder_len, image_tokens,
                             init_cache, prefill)
-from ..models.transformer import init_lm
+from ..models.transformer import check_mesh, init_lm
 
 
 def sample_next(logits: torch.Tensor, temperature: float,
@@ -67,16 +74,19 @@ class Server:
     ``device`` defaults to ``cuda`` and raises without a GPU."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
-                 params: Optional[Dict] = None):
+                 params: Optional[Dict] = None,
+                 ctx: ShardCtx = ShardCtx()):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Server: device 'cuda' requested but no CUDA "
                                "device is available; pass device='cpu' to "
                                "run on the CPU")
+        check_mesh(cfg, ctx)
         self.cfg = cfg
+        self.ctx = ctx
         self.params = params if params is not None else init_lm(
             cfg, torch.Generator(device=self.device).manual_seed(seed),
-            self.device)
+            self.device, ctx)
 
     def set_params(self, params: Dict) -> None:
         """Serve other weights of the same tree (e.g. the live training
@@ -111,29 +121,35 @@ class Server:
         them) come from a generator seeded with ``seed``. Tokens stay on
         the device until the end (one copy out)."""
         B, P = prompts.shape
-        dev = self.device
+        dev, ctx = self.device, self.ctx
         gen = torch.Generator(device=dev).manual_seed(seed)
-        cache = init_cache(self.cfg, B, P + gen_len, device=dev)
-        tokens = torch.as_tensor(np.asarray(prompts, np.int32), device=dev)
+        cache = init_cache(self.cfg, B, P + gen_len, device=dev, ctx=ctx)
+        lo, n = ctx.local("batch", B)
+        tokens = torch.as_tensor(np.asarray(prompts[lo:lo + n], np.int32),
+                                 device=dev)
         if aux is None:
             aux = self.stub_inputs(B, P, gen)
         batch = {"tokens": tokens,
                  **{k: torch.as_tensor(v, device=dev)
                     for k, v in aux.items()}}
-        logits, cache = prefill(self.cfg, self.params, batch, cache)
+        logits, cache = prefill(self.cfg, self.params, batch, cache, ctx)
         out = [tokens]
         pos = torch.full((1,), P, dtype=torch.long, device=dev)
         for i in range(gen_len):
-            noise = gumbel_noise(logits.shape, gen, dev) \
-                if temperature > 0 else None
+            noise = None
+            if temperature > 0:
+                noise = gumbel_noise((B,) + tuple(logits.shape[1:]), gen,
+                                     dev)
+                noise = noise[lo:lo + n] if n < B else noise
             tok = sample_next(logits, temperature, noise)[:, None].to(
                 torch.int32)
             out.append(tok)
             if i < gen_len - 1:    # the last token needs no next logits
                 logits, cache = decode_step(self.cfg, self.params, tok,
-                                            cache, pos)
+                                            cache, pos, ctx)
                 pos += 1
-        return torch.cat(out, dim=1).cpu().numpy()
+        return ctx.all_gather(torch.cat(out, dim=1), "batch",
+                              0).cpu().numpy()
 
 
 def build_parser() -> argparse.ArgumentParser:

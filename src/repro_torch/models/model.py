@@ -34,6 +34,12 @@ the card), projects each cross-attention's K/V from it once, attends with
 them, and stores them in bfloat16 as the cache's new ``cross_kv``, sized
 by this prompt's memory (the reference's prefill returns its own); each
 decode step attends to the stored K/V.
+
+On a mesh (``ctx``, the dense family; reference :87, :158, :319) the
+cache is this rank's shard of the reference's (``cache_axes``): its
+batch rows, its KV heads, or with replicated KV heads under the decode
+rules every head over S_max / m positions (``attention.decode_attn``).
+The logits are gathered over the vocabulary.
 """
 from __future__ import annotations
 
@@ -43,13 +49,16 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import on_card_route
-from .attention import _grouped_attn, decode_attn, init_kv_cache, \
-    prefill_attn
-from .layers import apply_norm, embed_tokens, unembed_matrix
+from .attention import (_grouped_attn, decode_attn, init_kv_cache,
+                        kv_cache_axes, prefill_attn)
+from .layers import ShardCtx, apply_norm, embed_tokens, local_shape, \
+    unembed_matrix
 from .losses import last_token_logits
-from .ssm import init_ssm_cache, mamba2_decode, mamba2_fwd
-from .transformer import (_unstack, decoder_layer, dtype_of, encode, ffn,
-                          gated_cross_block, memory_of, n_sites, shared_cfg)
+from .ssm import init_ssm_cache, mamba2_decode, mamba2_fwd, ssm_cache_axes
+from .transformer import (_layer_axes, _unstack, check_mesh, decoder_layer,
+                          dtype_of, encode, ffn, final_norm,
+                          gated_cross_block, memory_of, n_sites, param_axes,
+                          shared_cfg)
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
@@ -65,8 +74,39 @@ def image_tokens(cfg: ModelConfig) -> int:
     return cfg.num_image_tokens or 1600
 
 
+def cache_axes(cfg: ModelConfig) -> Dict:
+    """The logical axes of ``init_cache``'s tree (reference :87)."""
+    if cfg.family in ("dense", "moe"):
+        return {"kv": kv_cache_axes((cfg.num_layers,))}
+    if cfg.family == "ssm":
+        return {"ssm": ssm_cache_axes((cfg.num_layers,))}
+    if cfg.family == "hybrid":
+        ns, k = n_sites(cfg)
+        return {"ssm": ssm_cache_axes((ns, k)),
+                "attn_kv": kv_cache_axes((ns,))}
+    if cfg.family == "vlm":
+        ns, k = n_sites(cfg)
+        return {"kv": kv_cache_axes((ns, k)),
+                "cross_kv": kv_cache_axes((ns,), seq_axis=None)}
+    if cfg.family == "encdec":
+        L = (cfg.num_layers,)
+        return {"kv": kv_cache_axes(L),
+                "cross_kv": kv_cache_axes(L, seq_axis=None)}
+    raise ValueError(cfg.family)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda") -> Cache:
+               dtype=torch.bfloat16, device="cuda",
+               ctx: ShardCtx = ShardCtx()) -> Cache:
+    """Zero caches for ``batch`` prompts of up to ``max_len`` tokens; on
+    a mesh this rank's shard of each (``cache_axes``)."""
+    if ctx.mesh is not None:
+        check_mesh(cfg, ctx)
+        hd = cfg.resolved_head_dim()
+        full = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, hd)
+        shape = local_shape(full, cache_axes(cfg)["kv"]["k"], ctx)
+        return {"kv": {n: torch.zeros(shape, dtype=dtype, device=device)
+                       for n in ("k", "v")}}
     hd = cfg.resolved_head_dim()
     if cfg.family in ("dense", "moe", "encdec"):
         cache = {"kv": init_kv_cache(batch, max_len, cfg.num_kv_heads, hd,
@@ -144,19 +184,24 @@ def _cross_attn_cached(cfg: ModelConfig, p: Dict, x: torch.Tensor,
 
 
 def _run(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-         cache: Cache, attn, mamba, cross=None) -> torch.Tensor:
+         cache: Cache, attn, mamba, cross=None,
+         ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
     """Every layer with ``attn(p, h, layer's kv cache) -> (y, cache)`` as
     its attention, ``mamba(p, h, layer's ssm cache) -> (y, new cache)`` as
     its Mamba2 block and ``cross(p, h, i) -> y`` as the cross-attention
     of site or layer ``i`` (vlm, encdec) -> the next token's logits (B, V)
     f32."""
-    x = embed_tokens(params["embed"], tokens, dtype_of(cfg.compute_dtype))
+    check_mesh(cfg, ctx)
+    x = embed_tokens(params["embed"], tokens, dtype_of(cfg.compute_dtype),
+                     ctx)
+    lax = _layer_axes(param_axes(cfg)["layers"]) if ctx.mesh else None
 
     def dense_block(bcfg, p, x, kv):
+        p = ctx.gather_params(p, lax)
         h = apply_norm(bcfg.norm_kind, x, p.get("ln1"))
         x = x + attn(p["attn"], h, kv)[0]
         h = apply_norm(bcfg.norm_kind, x, p.get("ln2"))
-        return x + ffn(bcfg, p, h)
+        return x + ffn(bcfg, p, h, ctx)
 
     def mamba_block(p, x, sc):
         h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
@@ -196,12 +241,14 @@ def _run(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                               lambda pa, h, i=i: cross(pa, h, i))
     else:
         raise ValueError(cfg.family)
-    x = apply_norm(cfg.norm_kind, x, params.get("final_norm"))
-    return last_token_logits(x[:, -1:], unembed_matrix(params["embed"]))
+    x = final_norm(cfg, params, x, ctx)
+    return last_token_logits(x[:, -1:], unembed_matrix(params["embed"], ctx),
+                             ctx)
 
 
 def prefill(cfg: ModelConfig, params: Dict, batch: Dict[str, torch.Tensor],
-            cache: Cache) -> Tuple[torch.Tensor, Cache]:
+            cache: Cache, ctx: ShardCtx = ShardCtx()
+            ) -> Tuple[torch.Tensor, Cache]:
     """The prompt ``batch["tokens"]`` (B, S) through the model, filling
     the KV caches' ``[:, :S]`` and the SSM states; vlm and encdec read
     ``image_embeds`` / ``frames`` and replace ``cross_kv`` (bfloat16). ->
@@ -230,22 +277,23 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict[str, torch.Tensor],
     logits = _run(
         cfg, params, batch["tokens"], cache,
         lambda p, h, c: prefill_attn(p, h, c, chunk_q=cfg.attn_chunk_q,
-                                     **ak),
+                                     ctx=ctx, **ak),
         lambda p, h, c: mamba2_fwd(p, h, chunk=cfg.ssm_chunk,
-                                   return_state=True, **sk), cross)
+                                   return_state=True, **sk), cross, ctx)
     return logits, cache
 
 
 def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-                cache: Cache, pos: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+                cache: Cache, pos: torch.Tensor, ctx: ShardCtx = ShardCtx()
+                ) -> Tuple[torch.Tensor, Cache]:
     """tokens (B, 1) at position ``pos`` (an int tensor of one element on
     the cache's device, or an int). -> (logits (B, V) f32, cache)."""
     pos = torch.as_tensor(pos, dtype=torch.long,
                           device=tokens.device).reshape(1)
     ak, sk = _attn_kwargs(cfg), _ssm_kwargs(cfg)
     logits = _run(cfg, params, tokens, cache,
-                  lambda p, h, c: decode_attn(p, h, c, pos, **ak),
+                  lambda p, h, c: decode_attn(p, h, c, pos, ctx=ctx, **ak),
                   lambda p, h, c: mamba2_decode(p, h, c, **sk),
                   lambda p, h, i: _cross_attn_cached(
-                      cfg, p, h, _view(cache["cross_kv"], i)))
+                      cfg, p, h, _view(cache["cross_kv"], i)), ctx)
     return logits, cache

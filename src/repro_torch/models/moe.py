@@ -26,21 +26,30 @@ so the "selective" remat policy recomputes them, as
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..core.selection import top_k as _top_k
-from .layers import Params, winit
+from .layers import Init, Params
 
 
-def init_moe(d: int, f: int, n_experts: int, lead: Tuple[int, ...], device,
-             gen: torch.Generator) -> Params:
-    return {"router": winit(lead + (d, n_experts), device, gen),
-            "w_gate": winit(lead + (n_experts, d, f), device, gen),
-            "w_up": winit(lead + (n_experts, d, f), device, gen),
-            "w_down": winit(lead + (n_experts, f, d), device, gen)}
+def moe_axes(lead: Tuple[int, ...]) -> Dict:
+    """The logical axes of ``init_moe``'s tree (the reference's)."""
+    la = ("layers",) * len(lead)
+    return {"router": la + ("embed", None),
+            "w_gate": la + ("expert", "embed", "moe_mlp"),
+            "w_up": la + ("expert", "embed", "moe_mlp"),
+            "w_down": la + ("expert", "moe_mlp", "embed")}
+
+
+def init_moe(d: int, f: int, n_experts: int, lead: Tuple[int, ...],
+             init: Init) -> Params:
+    return {"router": init.normal(lead + (d, n_experts)),
+            "w_gate": init.normal(lead + (n_experts, d, f)),
+            "w_up": init.normal(lead + (n_experts, d, f)),
+            "w_down": init.normal(lead + (n_experts, f, d))}
 
 
 def capacity(n_tokens: int, n_experts: int, top_k: int,

@@ -22,28 +22,47 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import Params, rmsnorm, winit
+from .layers import Init, Params, rmsnorm
+
+
+def mamba2_axes(lead: Tuple[int, ...]) -> Dict:
+    """The logical axes of ``init_mamba2``'s tree (the reference's)."""
+    la = ("layers",) * len(lead)
+    return {"w_z": la + ("embed", "mlp"), "w_x": la + ("embed", "mlp"),
+            "w_bc": la + ("embed", None), "w_dt": la + ("embed", None),
+            "conv_x": la + (None, "mlp"), "conv_bc": la + (None, None),
+            "dt_bias": la + (None,), "A_log": la + (None,),
+            "D": la + (None,), "norm_scale": la + ("mlp",),
+            "w_out": la + ("mlp", "embed")}
+
+
+def ssm_cache_axes(stacked: Tuple[int, ...] = ()) -> Dict:
+    la = ("layers",) * len(stacked)
+    return {"ssm_state": la + ("batch", "mlp", None, None),
+            "conv_x": la + ("batch", None, "mlp"),
+            "conv_bc": la + ("batch", None, None)}
 
 
 def init_mamba2(d_model: int, *, state: int, head_dim: int, expand: int,
-                conv_width: int, lead: Tuple[int, ...], device,
-                gen: torch.Generator) -> Params:
+                conv_width: int, lead: Tuple[int, ...], init: Init) -> Params:
     d_inner = expand * d_model
     nh = d_inner // head_dim
-    f32 = dict(dtype=torch.float32, device=device)
-    a_log = torch.log(torch.linspace(1.0, float(nh), nh, **f32))
+
+    def a_log(device):
+        return torch.log(torch.linspace(1.0, float(nh), nh,
+                                        dtype=torch.float32, device=device))
     return {
-        "w_z": winit(lead + (d_model, d_inner), device, gen),
-        "w_x": winit(lead + (d_model, d_inner), device, gen),
-        "w_bc": winit(lead + (d_model, 2 * state), device, gen),
-        "w_dt": winit(lead + (d_model, nh), device, gen),
-        "conv_x": winit(lead + (conv_width, d_inner), device, gen, 0.1),
-        "conv_bc": winit(lead + (conv_width, 2 * state), device, gen, 0.1),
-        "dt_bias": torch.zeros(lead + (nh,), **f32),
-        "A_log": a_log.expand(lead + (nh,)).clone(),
-        "D": torch.ones(lead + (nh,), **f32),
-        "norm_scale": torch.ones(lead + (d_inner,), **f32),
-        "w_out": winit(lead + (d_inner, d_model), device, gen),
+        "w_z": init.normal(lead + (d_model, d_inner)),
+        "w_x": init.normal(lead + (d_model, d_inner)),
+        "w_bc": init.normal(lead + (d_model, 2 * state)),
+        "w_dt": init.normal(lead + (d_model, nh)),
+        "conv_x": init.normal(lead + (conv_width, d_inner), 0.1),
+        "conv_bc": init.normal(lead + (conv_width, 2 * state), 0.1),
+        "dt_bias": init.full(lead + (nh,), 0.0),
+        "A_log": init.row(lead + (nh,), a_log),
+        "D": init.full(lead + (nh,), 1.0),
+        "norm_scale": init.full(lead + (d_inner,), 1.0),
+        "w_out": init.normal(lead + (d_inner, d_model)),
     }
 
 

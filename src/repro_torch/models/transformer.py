@@ -48,6 +48,14 @@ Packed rows (``positions`` and ``segment_ids``) take the training path
 with segment-isolated attention (dense and moe only: the SSM recurrences
 have no segment reset); ``lm_per_segment_loss`` is the packed step's one
 differentiated forward.
+
+On a mesh (``ctx``, the dense family; reference :158-178, :283, :361)
+every leaf is this rank's shard of the reference's (``param_axes``):
+heads, the MLP's hidden width and the vocabulary over "model", and under
+FSDP the "embed" dimension over the data axes, all-gathered inside each
+layer's remat region (so the gathered copy is recomputed, not kept) and
+its gradient reduce-scattered. The batch is this rank's rows. The other
+families on a mesh are later slices (``MESH_LATER``).
 """
 from __future__ import annotations
 
@@ -55,6 +63,7 @@ from functools import partial
 from typing import Dict, Optional, Tuple
 
 import dataclasses
+import zlib
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -62,69 +71,91 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ModelConfig
 from ..kernels.xent.ops import per_sample_xent_fused
-from .attention import cross_attn, init_attn, mha
-from .layers import (Params, apply_norm, embed_tokens, init_embedding,
-                     init_mlp, init_norm, mlp_fwd, unembed_matrix,
+from .attention import attn_axes, cross_attn, init_attn, mha
+from .layers import (Axes, Init, LeafSpec, LeafSpecs, Params, ShardCtx,
+                     apply_norm, embed_tokens, embedding_axes,
+                     init_embedding, init_mlp, init_norm, local_shape,
+                     mlp_axes, mlp_fwd, norm_axes, unembed_matrix,
                      unembed_table, winit)
 from .losses import per_sample_xent, per_segment_xent
-from .moe import init_moe, moe_fwd
-from .ssm import init_mamba2, mamba2_fwd
+from .moe import init_moe, moe_axes, moe_fwd
+from .ssm import init_mamba2, mamba2_axes, mamba2_fwd
+
+# the slice that brings each family onto a mesh (refused until then)
+MESH_LATER = {
+    "moe": "the MoE family on a mesh (EP and TP, moe_groups, all-to-all "
+           "dispatch) is a later slice",
+    "ssm": "the SSM family on a mesh (SSD heads over 'mlp', "
+           "ssm_cache_axes, long_500k's cache over the data axes) is a "
+           "later slice",
+    "hybrid": "the hybrid family on a mesh (its Mamba2 stack and shared "
+              "block) is a later slice, with the SSM family's",
+    "vlm": "vlm and encdec on a mesh (cross-attention) are a later slice",
+    "encdec": "vlm and encdec on a mesh (cross-attention) are a later "
+              "slice",
+}
+
+
+def check_mesh(cfg: ModelConfig, ctx: ShardCtx) -> None:
+    """Refuse a family that does not run on a mesh yet, with its reason."""
+    if ctx.mesh is not None and cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: {MESH_LATER[cfg.family]}")
 
 
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
-def _init_dense_block(cfg: ModelConfig, lead: Tuple[int, ...], device,
-                      gen: torch.Generator) -> Dict:
+def _init_dense_block(cfg: ModelConfig, lead: Tuple[int, ...],
+                      init: Init) -> Dict:
     """Attention + MLP (or MoE, with arctic's dense residual) block."""
     d = cfg.d_model
     p: Dict = {"attn": init_attn(d, cfg.num_heads, cfg.num_kv_heads,
                                  cfg.resolved_head_dim(), cfg.qkv_bias,
-                                 lead, device, gen)}
-    ln1 = init_norm(cfg.norm_kind, d, lead, device)
+                                 lead, init)}
+    ln1 = init_norm(cfg.norm_kind, d, lead, init)
     if ln1 is not None:
         p["ln1"] = ln1
-        p["ln2"] = init_norm(cfg.norm_kind, d, lead, device)
+        p["ln2"] = init_norm(cfg.norm_kind, d, lead, init)
     if cfg.num_experts > 0:
-        p["moe"] = init_moe(d, cfg.d_ff, cfg.num_experts, lead, device, gen)
+        p["moe"] = init_moe(d, cfg.d_ff, cfg.num_experts, lead, init)
         if cfg.moe_dense_residual:
             p["dense_res"] = init_mlp("swiglu", d, cfg.dense_residual_d_ff,
-                                      lead, device, gen)
+                                      lead, init)
     else:
-        p["mlp"] = init_mlp(cfg.mlp_kind, d, cfg.d_ff, lead, device, gen)
+        p["mlp"] = init_mlp(cfg.mlp_kind, d, cfg.d_ff, lead, init)
     return p
 
 
-def _init_mamba_block(cfg: ModelConfig, lead: Tuple[int, ...], device,
-                      gen: torch.Generator) -> Dict:
+def _init_mamba_block(cfg: ModelConfig, lead: Tuple[int, ...],
+                      init: Init) -> Dict:
     p: Dict = {}
-    ln1 = init_norm(cfg.norm_kind, cfg.d_model, lead, device)
+    ln1 = init_norm(cfg.norm_kind, cfg.d_model, lead, init)
     if ln1 is not None:
         p["ln1"] = ln1
     p["mamba"] = init_mamba2(cfg.d_model, state=cfg.ssm_state,
                              head_dim=cfg.ssm_head_dim,
                              expand=cfg.ssm_expand,
                              conv_width=cfg.ssm_conv_width, lead=lead,
-                             device=device, gen=gen)
+                             init=init)
     return p
 
 
-def _init_cross_block(cfg: ModelConfig, lead: Tuple[int, ...], device,
-                      gen: torch.Generator) -> Dict:
+def _init_cross_block(cfg: ModelConfig, lead: Tuple[int, ...],
+                      init: Init) -> Dict:
     """Gated cross-attention block (llama-3.2-vision): the gates start at
     zero."""
     d = cfg.d_model
     p: Dict = {}
-    ln1 = init_norm(cfg.norm_kind, d, lead, device)
+    ln1 = init_norm(cfg.norm_kind, d, lead, init)
     if ln1 is not None:
         p["ln1"] = ln1
-        p["ln2"] = init_norm(cfg.norm_kind, d, lead, device)
+        p["ln2"] = init_norm(cfg.norm_kind, d, lead, init)
     p["attn"] = init_attn(d, cfg.num_heads, cfg.num_kv_heads,
-                          cfg.resolved_head_dim(), False, lead, device, gen)
-    p["mlp"] = init_mlp(cfg.mlp_kind, d, cfg.d_ff, lead, device, gen)
-    p["gate_attn"] = torch.zeros(lead + (1,), device=device)
-    p["gate_mlp"] = torch.zeros(lead + (1,), device=device)
+                          cfg.resolved_head_dim(), False, lead, init)
+    p["mlp"] = init_mlp(cfg.mlp_kind, d, cfg.d_ff, lead, init)
+    p["gate_attn"] = init.full(lead + (1,), 0.0)
+    p["gate_mlp"] = init.full(lead + (1,), 0.0)
     return p
 
 
@@ -143,50 +174,166 @@ def shared_cfg(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, family="dense", num_experts=0)
 
 
-def init_lm(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
-    """Random parameters with the reference's distributions: N(0, 0.02^2)
-    weights (the SSM convolutions 0.1^2), zero biases, unit norm scales,
-    ``A_log`` = log(1..nh), all float32 (``param_dtype`` applied last).
-    Drawn from ``gen`` on ``device``; the draws differ from JAX's (tests
-    carry JAX parameters across with ``bridge``)."""
+def _dense_block_axes(cfg: ModelConfig, lead: Tuple[int, ...]) -> Axes:
+    a: Axes = {"attn": attn_axes(cfg.qkv_bias, lead)}
+    n = norm_axes(cfg.norm_kind, lead)
+    if n is not None:
+        a["ln1"], a["ln2"] = n, dict(n)
+    if cfg.num_experts > 0:
+        a["moe"] = moe_axes(lead)
+        if cfg.moe_dense_residual:
+            a["dense_res"] = mlp_axes("swiglu", lead)
+    else:
+        a["mlp"] = mlp_axes(cfg.mlp_kind, lead)
+    return a
+
+
+def _mamba_block_axes(cfg: ModelConfig, lead: Tuple[int, ...]) -> Axes:
+    a: Axes = {"mamba": mamba2_axes(lead)}
+    n = norm_axes(cfg.norm_kind, lead)
+    if n is not None:
+        a["ln1"] = n
+    return a
+
+
+def param_axes(cfg: ModelConfig) -> Axes:
+    """The logical axes of ``init_lm``'s tree: the reference ``init_lm``'s
+    second result (``repro/models/transformer.py:204-257``)."""
+    axes: Axes = {"embed": embedding_axes(cfg.tie_embeddings)}
+    fn = norm_axes(cfg.norm_kind, ())
+    if fn is not None:
+        axes["final_norm"] = fn
+    if cfg.family in ("dense", "moe"):
+        axes["layers"] = _dense_block_axes(cfg, (cfg.num_layers,))
+    elif cfg.family == "ssm":
+        axes["layers"] = _mamba_block_axes(cfg, (cfg.num_layers,))
+    elif cfg.family == "hybrid":
+        axes["layers"] = _mamba_block_axes(cfg, n_sites(cfg))
+        axes["shared"] = _dense_block_axes(shared_cfg(cfg), ())
+    elif cfg.family == "vlm":
+        ns, k = n_sites(cfg)
+        axes["layers"] = _dense_block_axes(cfg, (ns, k))
+        cross: Axes = {"attn": attn_axes(False, (ns,)),
+                       "mlp": mlp_axes(cfg.mlp_kind, (ns,)),
+                       "gate_attn": ("layers", None),
+                       "gate_mlp": ("layers", None)}
+        n = norm_axes(cfg.norm_kind, (ns,))
+        if n is not None:
+            cross["ln1"], cross["ln2"] = n, dict(n)
+        axes["cross"] = cross
+    elif cfg.family == "encdec":
+        L = (cfg.num_layers,)
+        axes["layers"] = _dense_block_axes(cfg, L)
+        axes["cross"] = {"attn": attn_axes(False, L)}
+        n = norm_axes(cfg.norm_kind, L)
+        if n is not None:
+            axes["cross"]["ln"] = n
+        axes["encoder"] = _dense_block_axes(cfg, (cfg.num_encoder_layers,))
+        axes["frontend_proj"] = (None, "embed")
+        efn = norm_axes(cfg.norm_kind, ())
+        if efn is not None:
+            axes["enc_final_norm"] = efn
+    else:
+        raise ValueError(cfg.family)
+    return axes
+
+
+def _layer_axes(axes: Axes) -> Axes:
+    """A stacked block's axes without its leading "layers"."""
+    if isinstance(axes, dict):
+        return {k: _layer_axes(v) for k, v in axes.items()}
+    return axes[1:]
+
+
+def _init_local(specs, axes, gen: Optional[torch.Generator], device,
+                ctx: ShardCtx) -> Dict:
+    """This rank's shards of the leaves ``specs`` describes (``_init_tree``
+    with ``LeafSpecs``: the init functions' own distributions), made
+    directly at their local shapes, never the global tensor. A shard's
+    draws come from a generator seeded by ``gen``'s first draw, the
+    leaf's name and the shard's coordinates, so the ranks that hold the
+    same shard hold the same values."""
+    device = torch.device(device)
+    meta = device.type == "meta"
+    base = 0 if meta else int(torch.randint(
+        0, 2 ** 62, (1,), generator=gen, device=gen.device))
+
+    def make(path: str, spec: LeafSpec, axes):
+        shape = local_shape(spec.shape, axes, ctx)
+        if meta:
+            return torch.empty(shape, device=device)
+        if spec.kind == "full":
+            return Init(device, None).full(shape, spec.arg)
+        if spec.kind == "row":
+            lo, n = ctx.local(axes[-1], spec.shape[-1])
+            return spec.arg(device)[lo:lo + n].expand(shape).clone()
+        coords = tuple(ctx.coord(a) for a in axes)
+        seed = (base + zlib.crc32(f"{path}{coords}".encode())) % 2 ** 63
+        g = torch.Generator(device=device).manual_seed(seed)
+        return winit(shape, device, g, spec.arg)
+
+    def walk(tree, axes, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, axes[k], f"{path}/{k}")
+                    for k, v in tree.items()}
+        return make(path, tree, axes)
+    return walk(specs, axes, "")
+
+
+def _init_tree(cfg: ModelConfig, init) -> Dict:
+    """``init_lm``'s tree, each leaf made by ``init`` (an ``Init``, or
+    ``LeafSpecs`` for a mesh rank's shards)."""
     d = cfg.d_model
     params: Dict = {"embed": init_embedding(cfg.vocab_size, d,
-                                            cfg.tie_embeddings, device, gen)}
-    fn = init_norm(cfg.norm_kind, d, (), device)
+                                            cfg.tie_embeddings, init)}
+    fn = init_norm(cfg.norm_kind, d, (), init)
     if fn is not None:
         params["final_norm"] = fn
     if cfg.family in ("dense", "moe"):
-        params["layers"] = _init_dense_block(cfg, (cfg.num_layers,), device,
-                                             gen)
+        params["layers"] = _init_dense_block(cfg, (cfg.num_layers,), init)
     elif cfg.family == "ssm":
-        params["layers"] = _init_mamba_block(cfg, (cfg.num_layers,), device,
-                                             gen)
+        params["layers"] = _init_mamba_block(cfg, (cfg.num_layers,), init)
     elif cfg.family == "hybrid":
-        params["layers"] = _init_mamba_block(cfg, n_sites(cfg), device, gen)
-        params["shared"] = _init_dense_block(shared_cfg(cfg), (), device,
-                                             gen)
+        params["layers"] = _init_mamba_block(cfg, n_sites(cfg), init)
+        params["shared"] = _init_dense_block(shared_cfg(cfg), (), init)
     elif cfg.family == "vlm":
         ns, k = n_sites(cfg)
-        params["layers"] = _init_dense_block(cfg, (ns, k), device, gen)
-        params["cross"] = _init_cross_block(cfg, (ns,), device, gen)
+        params["layers"] = _init_dense_block(cfg, (ns, k), init)
+        params["cross"] = _init_cross_block(cfg, (ns,), init)
     elif cfg.family == "encdec":
         L = (cfg.num_layers,)
-        params["layers"] = _init_dense_block(cfg, L, device, gen)
+        params["layers"] = _init_dense_block(cfg, L, init)
         params["cross"] = {"attn": init_attn(
             d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim(),
-            False, L, device, gen)}
-        lnc = init_norm(cfg.norm_kind, d, L, device)
+            False, L, init)}
+        lnc = init_norm(cfg.norm_kind, d, L, init)
         if lnc is not None:
             params["cross"]["ln"] = lnc
         params["encoder"] = _init_dense_block(
-            cfg, (cfg.num_encoder_layers,), device, gen)
-        params["frontend_proj"] = winit((cfg.frontend_dim or d, d), device,
-                                        gen)
-        efn = init_norm(cfg.norm_kind, d, (), device)
+            cfg, (cfg.num_encoder_layers,), init)
+        params["frontend_proj"] = init.normal((cfg.frontend_dim or d, d))
+        efn = init_norm(cfg.norm_kind, d, (), init)
         if efn is not None:
             params["enc_final_norm"] = efn
     else:
         raise ValueError(cfg.family)
+    return params
+
+
+def init_lm(cfg: ModelConfig, gen: Optional[torch.Generator], device,
+            ctx: ShardCtx = ShardCtx()) -> Dict:
+    """Random parameters with the reference's distributions: N(0, 0.02^2)
+    weights (the SSM convolutions 0.1^2), zero biases, unit norm scales,
+    ``A_log`` = log(1..nh), all float32 (``param_dtype`` applied last).
+    Drawn from ``gen`` on ``device``; the draws differ from JAX's (tests
+    carry JAX parameters across with ``bridge``). On a mesh, this rank's
+    shards (``_init_local``)."""
+    if ctx.mesh is None:
+        params = _init_tree(cfg, Init(device, gen))
+    else:
+        check_mesh(cfg, ctx)
+        params = _init_local(_init_tree(cfg, LeafSpecs()), param_axes(cfg),
+                             gen, device, ctx)
     pdt = dtype_of(cfg.param_dtype)
     if pdt != torch.float32:
         params = tree_map(lambda p: p.to(pdt), params)
@@ -215,7 +362,8 @@ def _unstack(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
-def ffn(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
+def ffn(cfg: ModelConfig, p: Params, h: torch.Tensor,
+        ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
     """The block's feed-forward: MoE (+ the dense residual) or the MLP."""
     if cfg.num_experts > 0:
         y = moe_fwd(p["moe"], h, n_experts=cfg.num_experts,
@@ -225,16 +373,17 @@ def ffn(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
         if cfg.moe_dense_residual:
             y = y + mlp_fwd("swiglu", p["dense_res"], h)
         return y
-    return mlp_fwd(cfg.mlp_kind, p["mlp"], h)
+    return mlp_fwd(cfg.mlp_kind, p["mlp"], h, ctx)
 
 
 def _self_attn(cfg: ModelConfig, p: Params, h: torch.Tensor, scoring: bool,
                causal: bool = True, positions: Optional[torch.Tensor] = None,
-               segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+               segment_ids: Optional[torch.Tensor] = None,
+               ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
     return mha(p, h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
                head_dim=cfg.resolved_head_dim(), rope_theta=cfg.rope_theta,
                chunk_q=cfg.attn_chunk_q, causal=causal, scoring=scoring,
-               positions=positions, segment_ids=segment_ids)
+               positions=positions, segment_ids=segment_ids, ctx=ctx)
 
 
 def _cross(cfg: ModelConfig, p: Params, h: torch.Tensor,
@@ -247,13 +396,16 @@ def _cross(cfg: ModelConfig, p: Params, h: torch.Tensor,
 def _dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                  scoring: bool, positions: Optional[torch.Tensor] = None,
                  segment_ids: Optional[torch.Tensor] = None,
-                 causal: bool = True) -> torch.Tensor:
-    """Attention + feed-forward; ``causal=False`` is the encoder's."""
+                 causal: bool = True, ctx: ShardCtx = ShardCtx(),
+                 axes: Optional[Axes] = None) -> torch.Tensor:
+    """Attention + feed-forward; ``causal=False`` is the encoder's. On a
+    mesh ``axes`` (the layer's) says which leaves FSDP gathers here."""
+    p = ctx.gather_params(p, axes)
     h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
     x = x + _self_attn(cfg, p["attn"], h, scoring, causal, positions,
-                       segment_ids)
+                       segment_ids, ctx)
     h = apply_norm(cfg.norm_kind, x, p.get("ln2"))
-    return x + ffn(cfg, p, h)
+    return x + ffn(cfg, p, h, ctx)
 
 
 def _mamba_block(cfg: ModelConfig, p: Params,
@@ -347,7 +499,8 @@ def _runner(cfg: ModelConfig, scoring: bool):
 def lm_hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
               scoring: bool = False, memory: Optional[torch.Tensor] = None,
               positions: Optional[torch.Tensor] = None,
-              segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+              segment_ids: Optional[torch.Tensor] = None,
+              ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
     """tokens (B, S) -> final-normed hidden states (B, S, d), compute dtype.
     ``memory`` is the vlm's image embeddings (B, n_img, d) or the encdec's
     frame embeddings (B, T, frontend_dim), which those families need.
@@ -362,12 +515,15 @@ def lm_hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
         if memory is None:
             raise ValueError(MEMORY_NEEDED[cfg.family])
         memory = memory.to(dt)
-    x = embed_tokens(params["embed"], tokens, dt)
+    check_mesh(cfg, ctx)
+    x = embed_tokens(params["embed"], tokens, dt, ctx)
     run = _runner(cfg, scoring)
 
     if cfg.family in ("dense", "moe"):
+        lax = _layer_axes(param_axes(cfg)["layers"]) if ctx.mesh else None
         for p in _unstack(params["layers"], cfg.num_layers):
-            x = run(_dense_block, cfg, p, x, scoring, positions, segment_ids)
+            x = run(_dense_block, cfg, p, x, scoring, positions, segment_ids,
+                    True, ctx, lax)
     elif cfg.family == "ssm":
         for p in _unstack(params["layers"], cfg.num_layers):
             x = run(_mamba_block, cfg, p, x)
@@ -395,7 +551,15 @@ def lm_hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
             x = run(_decoder_block, cfg, p, cp, x, enc, scoring)
     else:
         raise ValueError(cfg.family)
-    return apply_norm(cfg.norm_kind, x, params.get("final_norm"))
+    return final_norm(cfg, params, x, ctx)
+
+
+def final_norm(cfg: ModelConfig, params: Dict, x: torch.Tensor,
+               ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
+    fn = params.get("final_norm")
+    if fn is not None and ctx.mesh is not None:
+        fn = ctx.gather_params(fn, param_axes(cfg)["final_norm"])
+    return apply_norm(cfg.norm_kind, x, fn)
 
 
 # the reference's reasons (its lm_hidden asserts them)
@@ -427,7 +591,8 @@ def memory_of(cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 
 def lm_per_sample_loss(cfg: ModelConfig, params: Dict,
                        batch: Dict[str, torch.Tensor], *,
-                       scoring: bool = False, seq_chunk: int = 1024
+                       scoring: bool = False, seq_chunk: int = 1024,
+                       ctx: ShardCtx = ShardCtx()
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (per_sample_loss (B,) f32, mean ()).
 
@@ -439,12 +604,12 @@ def lm_per_sample_loss(cfg: ModelConfig, params: Dict,
     h = lm_hidden(cfg, params, batch["tokens"], scoring=scoring,
                   memory=memory_of(cfg, batch),
                   positions=batch.get("positions"),
-                  segment_ids=batch.get("segment_ids"))
+                  segment_ids=batch.get("segment_ids"), ctx=ctx)
     if scoring:
-        table = unembed_table(params["embed"]).to(h.dtype).contiguous()
-        return per_sample_xent_fused(h, table, batch["labels"])
-    return per_sample_xent(h, unembed_matrix(params["embed"]),
-                           batch["labels"], seq_chunk=seq_chunk)
+        table = unembed_table(params["embed"], ctx).to(h.dtype).contiguous()
+        return per_sample_xent_fused(h, table, batch["labels"], ctx=ctx)
+    return per_sample_xent(h, unembed_matrix(params["embed"], ctx),
+                           batch["labels"], seq_chunk=seq_chunk, ctx=ctx)
 
 
 def lm_per_segment_loss(cfg: ModelConfig, params: Dict,

@@ -10,6 +10,11 @@ Order of operations as in the reference: clip by global norm first; the
 step counter then advances; bias corrections use the step in float32;
 AdamW adds ``wd * p`` into the delta; SGD-momentum couples weight decay
 into the gradient.
+
+On a mesh each rank updates its own shards; the clip's global norm sums
+every shard's squares once: each rank's sum over its leaves, a leaf
+divided by the number of ranks holding the same shard, all-reduced over
+the mesh.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..models.layers import ShardCtx
 from ..models.transformer import dtype_of, tree_leaves, tree_map
 
 
@@ -52,13 +58,29 @@ def init_opt_state(cfg: OptConfig, params: Dict) -> OptState:
     return OptState(step=0, m=m, v=v)
 
 
-def global_norm(grads: Dict) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum() for g in tree_leaves(grads)))
+def global_norm(grads: Dict, ctx: ShardCtx = ShardCtx(),
+                axes: Optional[Dict] = None) -> torch.Tensor:
+    """The norm of every gradient leaf together; on a mesh over the
+    shards of every rank (``axes``: the leaves' logical axes)."""
+    if ctx.mesh is None:
+        return torch.sqrt(sum(g.float().square().sum()
+                              for g in tree_leaves(grads)))
+    total = sum(g.float().square().sum() / ctx.replicas(a)
+                for g, a in zip(tree_leaves(grads), _axes_leaves(axes)))
+    return torch.sqrt(ctx.all_reduce(total, "*"))
+
+
+def _axes_leaves(axes) -> list:
+    """The axes tuples of a logical-axes tree, in ``tree_leaves`` order."""
+    if isinstance(axes, dict):
+        return [x for k in sorted(axes) for x in _axes_leaves(axes[k])]
+    return [axes]
 
 
 @torch.no_grad()
 def apply_updates(cfg: OptConfig, params: Dict, grads: Dict, state: OptState,
-                  lr_scale: float) -> Dict[str, torch.Tensor]:
+                  lr_scale: float, ctx: ShardCtx = ShardCtx(),
+                  axes: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
     """One optimizer step, in place on ``params`` and ``state``.
 
     ``lr_scale`` is schedule(step). Returns metrics (``grad_norm``).
@@ -66,7 +88,7 @@ def apply_updates(cfg: OptConfig, params: Dict, grads: Dict, state: OptState,
     metrics = {}
     g_leaves = tree_leaves(grads)
     if cfg.grad_clip_norm > 0:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, ctx, axes)
         scale = torch.clamp(cfg.grad_clip_norm / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
         g_leaves = [(g.float() * scale).to(g.dtype) for g in g_leaves]

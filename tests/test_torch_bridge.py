@@ -104,9 +104,11 @@ def test_port_imports_neither_jax_nor_repro():
         "       'repro_torch.distributed.hostcomm',\n"
         "       'repro_torch.distributed.sharding',\n"
         "       'repro_torch.kernels._cost', 'repro_torch.launch.cost',\n"
-        "       'repro_torch.launch.dryrun'}\n"
+        "       'repro_torch.launch.dryrun',\n"
+        "       'repro_torch.distributed.collectives',\n"
+        "       'repro_torch.launch.mesh'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
-        "assert len(names) >= 70, names\n"
+        "assert len(names) >= 72, names\n"
         "print('OK', len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -24,6 +24,7 @@ from _torch_parity import fast_jit, one_torch_thread  # noqa: F401
 from repro.models import ssm as jssm
 from repro.models.layers import ShardCtx
 from repro_torch.models import ssm as tssm
+from repro_torch.models.layers import Init
 
 CTX = ShardCtx()
 ATOL, RTOL = 1e-5, 1e-4
@@ -84,8 +85,8 @@ def _params(seed=1):
 def test_init_tree_and_a_log_as_jax():
     p, _ = _params()
     own = tssm.init_mamba2(D, state=N, head_dim=P, expand=EXPAND,
-                           conv_width=W, lead=(3,), device="cpu",
-                           gen=torch.Generator().manual_seed(0))
+                           conv_width=W, lead=(3,), init=Init(
+                               "cpu", torch.Generator().manual_seed(0)))
     assert {k: tuple(v.shape[1:]) for k, v in own.items()} == \
         {k: tuple(np.shape(v)) for k, v in p.items()}
     np.testing.assert_allclose(own["A_log"][2].numpy(),
