@@ -225,6 +225,7 @@ slot count reports ``"refused"``.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import math
@@ -236,6 +237,7 @@ import time
 import types
 from functools import partial
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -1909,30 +1911,52 @@ def flash_inputs_of(record: list):
         attention.gqa_flash_attention = kernel
 
 
-@contextlib.contextmanager
-def moe_routes(record: list, replay: bool = False):
-    """Record each MoE call's expert choices in call order (``replay``:
-    hand them back, in the same order, to a second run of the same
-    forward). A bf16 near-tie of two router logits is a discontinuity of
-    the model: a last-ulp difference of attention upstream swaps an
-    expert, and the token's output with it. Replaying the first run's
-    choices holds two forwards to each other where they route alike."""
-    from repro_torch.models import moe
-    inner = moe._top_k
-    pending = iter(list(record)) if replay else None
+class Routed(Exception):
+    """Raised after a MoE call's routing (``dispatch_spy(stop=True)``)."""
 
-    def spy(logits, k):
-        if replay:
-            idx = next(pending)
-            return logits.gather(-1, idx), idx
-        vals, idx = inner(logits, k)
-        record.append(idx)
-        return vals, idx
-    moe._top_k = spy
+
+@contextlib.contextmanager
+def dispatch_spy(record: list, replay=None, coord: int = 0,
+                 stop: bool = False):
+    """Each MoE call's (expert ids, kept pairs, flips), in call order, into
+    ``record`` (on the host). ``replay``: another run's record, whose
+    expert ids this run routes with, one entry a call: a rank takes its
+    own groups of it (the ``coord``-th G / dp of them; a group it shares
+    is taken whole); ``flips`` counts the tokens whose own top k differ
+    (a bf16 near-tie of two router logits). ``stop``: raise ``Routed``
+    after the first routing (the float32 reruns that cannot hold a
+    float32 copy of their expert stacks check the routes alone)."""
+    from repro_torch.models import moe
+    inner_route, inner_top_k = moe.route, moe._top_k
+    pending = iter(replay) if replay is not None else None
+
+    def route(logits, k, C):
+        flips = 0
+        if pending is not None:
+            idx = _own_groups(next(pending)[0], logits.shape[0], coord).to(
+                logits.device)
+            flips = int((inner_top_k(logits, k)[1] != idx).any(-1).sum())
+            moe._top_k = lambda l, kk: (l.gather(-1, idx), idx)
+        try:
+            out = inner_route(logits, k, C)
+        finally:
+            moe._top_k = inner_top_k
+        record.append((out[1].cpu(), out[3].cpu(), flips))
+        if stop:
+            raise Routed()
+        return out
+    moe.route = route
     try:
         yield
     finally:
-        moe._top_k = inner
+        moe.route = inner_route
+
+
+def _own_groups(t: torch.Tensor, n: int, coord: int) -> torch.Tensor:
+    """A one-process record's (G, ...) entry cut to a rank's ``n`` groups:
+    the ``coord``-th n of them, or all of them when the rank routes every
+    group (a group spanning its data ranks)."""
+    return t if t.shape[0] == n else t[coord * n:(coord + 1) * n]
 
 
 def _expect(what: str, got: dict, want: dict) -> None:
@@ -1965,7 +1989,7 @@ def phase_serve(name: str = "serve", cfg=None, gen: int = SERVE_GEN,
     the full (training-path) forward over the same prefix, both on
     ``check_cfg`` (``cfg`` by default; a MoE is held with a dropless
     capacity, where one-token decode routes as the full forward does; the
-    plain and SDPA prefills take the kernel's routes, ``moe_routes``).
+    plain and SDPA prefills take the kernel's routes, ``dispatch_spy``).
     With ``exact`` the teacher-forced steps are held in float32 compute,
     over a float32 cache that the plain prefill fills (the flash kernel
     takes bf16 only), as ``tests/test_decode.py`` holds the reference: in
@@ -2040,7 +2064,7 @@ def phase_serve(name: str = "serve", cfg=None, gen: int = SERVE_GEN,
 
     with torch.no_grad():
         fast_routes, free_routes, qkv = [], [], []
-        with moe_routes(fast_routes), flash_inputs_of(qkv):
+        with dispatch_spy(fast_routes), flash_inputs_of(qkv):
             fast, cache = run_prefill(ccfg)
         from repro_torch.kernels.flash_attn.ops import gqa_flash_attention
         from repro_torch.kernels.flash_attn.ref import flash_attention_ref
@@ -2052,24 +2076,24 @@ def phase_serve(name: str = "serve", cfg=None, gen: int = SERVE_GEN,
             layer_errs.append((diff.max().item(), bool(
                 (diff <= FLASH_TOL + FLASH_RTOL * want.abs()).all())))
         del qkv
-        with plain_attention(), moe_routes(fast_routes, replay=True):
+        with plain_attention(), dispatch_spy([], fast_routes):
             plain, _ = run_prefill(ccfg)
         prefill_err = logit_errs(fast, plain)
         sdpa_err = None
         if layer_errs:     # a third prefill: the attention through SDPA
-            with sdpa_attention(), moe_routes(fast_routes, replay=True):
+            with sdpa_attention(), dispatch_spy([], fast_routes):
                 sdpa, _ = run_prefill(ccfg)
             sdpa_err = logit_errs(sdpa, plain)
             del sdpa
         routes = {}
         if ccfg.num_experts:
             # the same plain prefill routing on its own
-            with plain_attention(), moe_routes(free_routes):
+            with plain_attention(), dispatch_spy(free_routes):
                 free, _ = run_prefill(ccfg)
             routes = {"prefill_unpinned_max_rel_err":
                       logit_errs(fast, free)[1],
                       "routes_agree": statistics.mean(
-                          (a == b).all(-1).float().mean().item()
+                          (a[0] == b[0]).all(-1).float().mean().item()
                           for a, b in zip(fast_routes, free_routes))}
             del free
         bf16_errs = teacher_forced(ccfg, cache)
@@ -2452,11 +2476,12 @@ def grok1_cut():
 
 
 def phase_serve_mamba2() -> dict:
-    """mamba2-780m at full width: no attention, so the prefill launches
-    no kernel (and nothing else does). Decode is held to the forward in
+    """mamba2-780m at full width, 16 tokens (64 until the MoE mesh phase
+    needed the script's time): no attention, so the prefill launches no
+    kernel (and nothing else does). Decode is held to the forward in
     float32 (``phase_serve``'s ``exact``)."""
     from repro_torch.configs import get_config
-    return phase_serve("serve_mamba2", get_config("mamba2-780m"),
+    return phase_serve("serve_mamba2", get_config("mamba2-780m"), gen=16,
                        expect={}, exact=True)
 
 
@@ -2619,11 +2644,12 @@ def phase_serve_vlm() -> dict:
 
 
 def phase_serve_encdec() -> dict:
-    """seamless-m4t-large-v2 at its published widths and depth, 64
-    tokens: 48 flash launches a prefill (the encoder's 24 over 128 frames
-    without the causal mask, the decoder's 24); the encoder runs once a
+    """seamless-m4t-large-v2 at its published widths and depth, 16
+    tokens (64 until the MoE mesh phase needed the script's time): 48
+    flash launches a prefill (the encoder's 24 over 128 frames without
+    the causal mask, the decoder's 24); the encoder runs once a
     ``generate``, in the prefill."""
-    return phase_serve("serve_encdec", seamless(), exact="auto")
+    return phase_serve("serve_encdec", seamless(), gen=16, exact="auto")
 
 
 # ---------------------------------------------------------------------------
@@ -3224,7 +3250,8 @@ def phase_data() -> None:
     32 x 512 meta-batch and the packed 16 x 512 x 4 one. Host ms to build
     a batch (numpy), to pin it, and to pin and copy it to the card (the
     trainer's CUDA placer, to a device sync); then the trainer with
-    prefetch on and off, in turns (on, off, off, on), 10 steps each: the
+    prefetch on and off, in turns (on, off, off, on), 6 steps each (10
+    until the MoE mesh phase needed the script's time): the
     median step, the consumer's stall in next() and the untraced device
     busy share (device time of a step, profiled, over the median step)."""
     from repro_torch.data.pipeline import CudaPlacer
@@ -3251,7 +3278,7 @@ def phase_data() -> None:
             torch.cuda.synchronize()
 
         row["pin_and_copy_ms"] = _median_ms(pin_and_copy, 10)
-        run_args = args + ["--max-steps", "10"]
+        run_args = args + ["--max-steps", "6"]
         runs = [(p, _trainer_run(run_args + ([] if p else ["--no-prefetch"])))
                 for p in (True, False, False, True)]
         device_ms = _step_device_ms(args)
@@ -4004,29 +4031,55 @@ def mesh_counted(wrappers: dict, out: dict):
                             (time.perf_counter() - t0) * 1e3, wrappers))
 
 
-def mesh_child(rank: int, port: int, ref_dir: str) -> None:
-    """``--mesh-child RANK PORT DIR``: one rank of phase ``mesh``. The
-    four ranks join a gloo group over rank 0's ``TCPStore``, build the
-    (2, 2) mesh, take their shards of the parent's weights and rows of its
-    batch (the same seeds), and run the ES step, the prefill and four
-    decode steps; one JSON line of counts, times and errors against the
-    parent's one-process run (``DIR/one.pt``)."""
+def _join_mesh(rank: int, port: int):
+    """Join the four ranks' gloo group over rank 0's ``TCPStore`` (a free
+    localhost port) -> the (2, 2) mesh."""
     import datetime
 
     import torch.distributed as dist
-    from repro_torch.configs import get_config
-    from repro_torch.distributed.sharding import make_ctx, shard_tree
-    from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.model import decode_step, init_cache, prefill
-    from repro_torch.models.transformer import (init_lm, lm_per_sample_loss,
-                                                param_axes, tree_leaves,
-                                                tree_map)
     torch.cuda.set_device(0)
     store = dist.TCPStore("127.0.0.1", port, 4, rank == 0,
                           timeout=datetime.timedelta(seconds=600))
     dist.init_process_group("gloo", store=store, rank=rank, world_size=4)
-    mesh = make_mesh(MESH_SHAPE, MESH_NAMES)
+    return make_mesh(MESH_SHAPE, MESH_NAMES)
+
+
+# how long a rank of phase mesh waits for phase mesh_moe's references
+MESH_GO_S = 900
+
+
+def mesh_child(rank: int, port: int, ref_dir: str) -> None:
+    """``--mesh-child RANK PORT DIR``: one rank of phase ``mesh``
+    (``_mesh_dense_rank``), kept for phase ``mesh_moe`` (the four
+    processes start once for both phases): once the parent has written
+    that phase's references and ``DIR/go``, the rank runs
+    ``_mesh_moe_rank``; ``DIR/stop``, or MESH_GO_S seconds, ends it."""
+    import torch.distributed as dist
+    mesh = _join_mesh(rank, port)
+    emit(_mesh_dense_rank(rank, mesh, ref_dir))
+    torch.cuda.empty_cache()
+    d, t0 = Path(ref_dir), time.perf_counter()
+    while not ((d / "go").exists() or (d / "stop").exists()
+               or time.perf_counter() - t0 > MESH_GO_S):
+        time.sleep(0.1)
+    if (d / "go").exists():
+        emit(_mesh_moe_rank(rank, mesh, ref_dir))
+    dist.destroy_process_group()
+
+
+def _mesh_dense_rank(rank: int, mesh, ref_dir: str) -> dict:
+    """One rank of phase ``mesh``: its shards of the parent's weights and
+    rows of its batch (the same seeds); the ES step, the prefill and four
+    decode steps -> counts, times and errors against the parent's
+    one-process run (``DIR/one.pt``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import make_ctx, shard_tree
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    from repro_torch.models.transformer import (init_lm, lm_per_sample_loss,
+                                                param_axes, tree_leaves,
+                                                tree_map)
     one = torch.load(Path(ref_dir) / "one.pt", mmap=True)
     import dataclasses
     wrappers = {**_wrappers(), **_xent_halves()}
@@ -4128,8 +4181,7 @@ def mesh_child(rank: int, port: int, ref_dir: str) -> None:
                 logits, one["logits_f32"][i + 1, lo:lo + n].cuda()))
             pos += 1
     res["logit_errs_f32"] = errs
-    emit(res)
-    dist.destroy_process_group()
+    return res
 
 
 def adamw_first_step(p0: list, m: list, v: list, lr_scale: float) -> list:
@@ -4219,7 +4271,7 @@ def _mesh_one_process(ref_dir: Path) -> dict:
     return {"step_ms": step_ms, "sdpa_gap": sdpa_gap}
 
 
-def phase_mesh() -> dict:
+def phase_mesh(keep: Optional[dict] = None) -> dict:
     """The dense family sharded over a (2, 2) ("data", "model") mesh of
     four processes on the one card (gloo; their collectives staged
     through pinned host buffers): full-width qwen1.5-0.5b's ES step at
@@ -4235,10 +4287,11 @@ def phase_mesh() -> dict:
     measured call to the dry run's trace of the same (2, 2) cell under a
     fake group of 4 in this process (FLOPs equal, peak within 5 % or 256
     MiB, collective bytes equal) and to its launches (flash 24 a scoring
-    forward and a prefill, xent's two halves, one score update). Returns
+    forward and a prefill, xent's two halves, one score update). With
+    ``keep`` (a dict) the four processes are left in ``keep["ranks"]``,
+    waiting for phase ``mesh_moe``'s work; else they are stopped. Returns
     the ranks' launches of the measured calls."""
     import shutil
-    import socket
     import tempfile
 
     from repro_torch.configs import get_config
@@ -4255,34 +4308,37 @@ def phase_mesh() -> dict:
                 mesh_info(m))
     trace_s = time.perf_counter() - t0
     ref_dir = Path(tempfile.mkdtemp())
+    ranks = None
     try:
         one = _mesh_one_process(ref_dir)
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
-        sys.stdout.flush()
         t1 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--mesh-child",
-             str(r), str(port), str(ref_dir)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(4)]
-        try:
-            outs = [p.communicate(timeout=600)[0] for p in procs]
-        finally:
-            for p in procs:
-                p.kill()
-                p.wait()
+        ranks = MeshRanks("--mesh-child", ref_dir)
+        got = ranks.wait_for("mesh_child")
         ranks_s = time.perf_counter() - t1
-    finally:
+        (ref_dir / "one.pt").unlink()
+    except BaseException:
+        if ranks is not None:
+            ranks.close()
         shutil.rmtree(ref_dir, ignore_errors=True)
-    got = []
-    for r, (p, o) in enumerate(zip(procs, outs)):
-        lines = [json.loads(x) for x in o.splitlines()
-                 if x.startswith('{"mesh_child"')]
-        if p.returncode != 0 or not lines:
-            raise AssertionError(f"mesh: rank {r} failed (rc "
-                                 f"{p.returncode}):\n{o[-4000:]}")
-        got.append(lines[-1])
+        raise
+    try:
+        launches = _mesh_checks(got, one, pred, trace_s, ranks_s)
+    except BaseException:
+        ranks.close()
+        shutil.rmtree(ref_dir, ignore_errors=True)
+        raise
+    if keep is None:
+        ranks.close()
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    else:                # the ranks wait for phase mesh_moe's references
+        keep["ranks"] = ranks
+    return launches
+
+
+def _mesh_checks(got: list, one: dict, pred: dict, trace_s: float,
+                 ranks_s: float) -> dict:
+    """Phase ``mesh``'s record and checks of its ranks' answers -> their
+    launches."""
     bf16_bound = SDPA_SLACK * max(rel for _, rel in one["sdpa_gap"])
     want_launches = {"train": {"gqa_flash_attention": 24,
                                "xent_partials": 1, "xent_combine": 1,
@@ -4353,6 +4409,700 @@ def phase_mesh() -> dict:
                                                            0)
             launches["fused_score_update"] += meas["launches"].get(
                 "fused_score_update", 0)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase mesh_moe: the MoE family sharded over a (2, 2) mesh of four processes
+# ---------------------------------------------------------------------------
+
+MOE_B, MOE_S, MOE_MB = 32, 512, 8     # S1's traffic: meta-batch, S, minibatch
+# the one-process references route as the (2, 2) mesh does: its 2 data ranks
+MOE_DP = 2
+
+
+def moe_full_cfgs() -> dict:
+    """name -> config: grok-1 and arctic at their published widths, depth
+    cut to one layer (64 -> 1, 35 -> 1), ``fsdp_params`` off, KV heads
+    replicated (both configs' ``shard_kv_heads`` off), grouped dispatch
+    (``moe_groups`` 0): grok-1 under ``moe_tp_bf16`` (the experts' d_ff
+    over "model", bf16 weights), arctic its own (its 128 experts over
+    "model", bf16 weights, the dense residual)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    grok = dryrun.apply_variant(get_config("grok-1-314b"),
+                                dryrun.VARIANTS["moe_tp_bf16"])[0]
+    return {name: dataclasses.replace(c, num_layers=1, fsdp_params=False)
+            for name, c in (("grok", grok),
+                            ("arctic", get_config("arctic-480b")))}
+
+
+def moe_smoke_cases() -> dict:
+    """name -> (smoke config, variant): the whole ES step at S1's traffic,
+    which four ranks of the full widths cannot hold on one card: grok
+    smoke (TP) under grouped and global dispatch (the capacity split over
+    "data"), arctic smoke (EP, global dispatch, the dense residual)."""
+    from repro_torch.configs.registry import get_smoke_config
+    grok = get_smoke_config("grok-1-314b")
+    return {"grok_smoke_grouped": (grok, "moe_grouped"),
+            "grok_smoke_ungrouped": (grok, "es_ungrouped"),
+            "arctic_smoke": (get_smoke_config("arctic-480b"), "es")}
+
+
+@contextlib.contextmanager
+def mesh_groups(dp: int):
+    """The port's one-process MoE calls group their tokens as a mesh of
+    ``dp`` data ranks does (``moe._auto_groups`` on the global token
+    count), so that they route as the mesh's ranks; calls on a mesh are
+    untouched."""
+    from repro_torch.models import moe
+    real = moe._auto_groups
+
+    def groups(ctx, T, E):
+        if ctx.mesh is not None:
+            return real(ctx, T, E)
+        g = dp
+        if T % g:
+            return 1
+        while g > 1 and T // g < 2 * E:
+            g //= 2
+        return g
+    moe._auto_groups = groups
+    try:
+        yield
+    finally:
+        moe._auto_groups = real
+
+
+def moe_weights(cfg, ctx, seed: int) -> dict:
+    """``cfg``'s parameters (N(0, 0.02^2) weights, unit norm scales, in
+    its ``param_dtype``): this rank's shards under ``ctx``, whole without
+    a mesh. Each leaf is drawn from a generator seeded by its name, an
+    expert stack expert by expert by its name and the expert's index, so
+    the ranks and the one-process run hold the same values and no rank
+    ever draws a whole stack (arctic's is 26.8 GB in bf16)."""
+    import zlib
+
+    from repro_torch.models.layers import LeafSpecs, local_shape
+    from repro_torch.models.transformer import (_init_tree, dtype_of,
+                                                param_axes)
+    pdt = dtype_of(cfg.param_dtype)
+
+    def draw(shape, name, scale):
+        g = _gen((seed * 1_000_003 + zlib.crc32(name.encode())) % 2 ** 63)
+        return torch.randn(shape, device="cuda", generator=g).mul_(scale)
+
+    def cut(t, axes):
+        for dim, a in enumerate(axes):
+            lo, n = ctx.local(a, t.shape[dim])
+            t = t.narrow(dim, lo, n)
+        return t.to(pdt)
+
+    def make(path, spec, axes):
+        if spec.kind == "full":
+            return cut(torch.full(spec.shape, spec.arg, device="cuda"), axes)
+        if "expert" not in axes:
+            return cut(draw(spec.shape, path, spec.arg), axes).contiguous()
+        i = axes.index("expert")
+        lo, n = ctx.local("expert", spec.shape[i])
+        rest = axes[:i] + axes[i + 1:]
+        one = spec.shape[:i] + spec.shape[i + 1:]
+        out = torch.empty(local_shape(spec.shape, axes, ctx), dtype=pdt,
+                          device="cuda")
+        for e in range(lo, lo + n):
+            out.select(i, e - lo).copy_(cut(draw(one, f"{path}/{e}",
+                                                 spec.arg), rest))
+        return out
+
+    def walk(tree, axes, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, axes[k], f"{path}/{k}")
+                    for k, v in tree.items()}
+        return make(path, tree, axes)
+    return walk(_init_tree(cfg, LeafSpecs()), param_axes(cfg), "")
+
+
+def _routes_bad(got: list, want: list, coord: int) -> list:
+    """Calls whose expert ids or kept pairs differ from the one-process
+    record's groups of this rank."""
+    if len(got) != len(want):
+        return [f"{len(got)} MoE calls against {len(want)}"]
+    bad = []
+    for i, ((e, k, _), (we, wk, _)) in enumerate(zip(got, want)):
+        we, wk = (_own_groups(t, e.shape[0], coord) for t in (we, wk))
+        if e.shape != we.shape or not torch.equal(e, we):
+            bad.append(f"expert ids {i}")
+        if k.shape != wk.shape or not torch.equal(k, wk):
+            bad.append(f"kept {i}")
+    return bad
+
+
+@contextlib.contextmanager
+def sdpa_everywhere():
+    """``sdpa_attention``, and a decode step's attention
+    (``attention._grouped_attn``, plain PyTorch: bf16 scores, a float32
+    softmax) through one bf16 ``scaled_dot_product_attention`` call too: a
+    second bf16 attention on every step of a teacher-forced serve, not only
+    its prefill (a one-layer model's decode steps read the same cache in
+    both runs, so only their attention can differ)."""
+    import torch.nn.functional as F
+    from repro_torch.models import attention
+    plain = attention._grouped_attn
+
+    def sdpa(q, k, v, mask):
+        B, S, K, G, hd = q.shape
+        m = None if mask is None else (mask if mask.ndim == 2
+                                       else mask[:, None]).to(q.dtype)
+        out = F.scaled_dot_product_attention(
+            q.reshape(B, S, K * G, hd).transpose(1, 2), k.transpose(1, 2),
+            v.transpose(1, 2), attn_mask=m, enable_gqa=True)
+        return out.transpose(1, 2).reshape(B, S, K, G, hd)
+    attention._grouped_attn = sdpa
+    try:
+        with sdpa_attention():
+            yield
+    finally:
+        attention._grouped_attn = plain
+
+
+def _serve_teacher(cfg, params, prompts, cache, ctx, tokens, want=None,
+                   attention=contextlib.nullcontext, counted=None):
+    """The prefill of ``prompts`` and TEACHER_STEPS decode steps fed
+    ``tokens`` (the one-process run's; None: the run's own argmax) under
+    ``attention``; ``counted`` (wrappers, outs) measures the prefill and
+    the first decode step (``mesh_counted``). A step cut by ``Routed``
+    gives no logits. -> (logits a step, tokens fed, errors against
+    ``want`` (steps + 1, B, V))."""
+    from repro_torch.models.model import decode_step, prefill
+    seq, fed, errs = [], [], []
+    with attention():
+        for i in range(TEACHER_STEPS + 1):
+            if i and tokens is None:
+                tok = torch.argmax(seq[-1], dim=-1).to(torch.int32)
+            elif i:
+                tok = tokens[i - 1].cuda()
+            meter = (mesh_counted(counted[0], counted[1][i])
+                     if counted and i < 2 else contextlib.nullcontext())
+            try:
+                with meter:
+                    if i == 0:
+                        logits, cache = prefill(cfg, params,
+                                                {"tokens": prompts}, cache,
+                                                ctx)
+                    else:
+                        fed.append(tok)
+                        pos = torch.full((1,), SERVE_P + i - 1,
+                                         dtype=torch.long, device="cuda")
+                        logits, cache = decode_step(cfg, params, tok[:, None],
+                                                    cache, pos, ctx)
+            except Routed:
+                continue
+            seq.append(logits)
+            if want is not None:
+                errs.append(logit_errs(logits, want[i].cuda()))
+    return seq, fed, errs
+
+
+def _moe_prepared(cfg, kind: str, mesh):
+    """A full-width measured call as the dry run traces it on ``meta`` on
+    a mesh (rank 0's program): the scoring forward at S1's traffic, SV's
+    prefill or a decode step on its cache of 512 + 4 (the decode rules
+    for both, as the ranks run them)."""
+    from repro_torch.distributed.sharding import make_ctx
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    from repro_torch.models.transformer import init_lm, lm_per_sample_loss
+    ctx = make_ctx(cfg, mesh, "train" if kind == "score" else "decode")
+    params = init_lm(cfg, None, "meta", ctx)
+    if kind == "score":
+        batch = dryrun.make_batch(cfg, ctx.local("batch", MOE_B)[1], MOE_S,
+                                  "meta", None)
+
+        def score():
+            with torch.no_grad():
+                return lm_per_sample_loss(cfg, params, batch, scoring=True,
+                                          ctx=ctx)
+        return dryrun.Prepared(score, (params, batch), MOE_B * MOE_S, 0)
+    n = ctx.local("batch", SERVE_B)[1]
+    cache = init_cache(cfg, SERVE_B, SERVE_P + TEACHER_STEPS, device="meta",
+                       ctx=ctx)
+    if kind == "prefill":
+        batch = dryrun.make_batch(cfg, n, SERVE_P, "meta", None, train=False)
+        return dryrun.Prepared(lambda: prefill(cfg, params, batch, cache, ctx),
+                               (params, batch, cache), SERVE_B * SERVE_P, 0)
+    tok = dryrun.make_batch(cfg, n, 1, "meta", None, train=False)["tokens"]
+    pos = torch.full((1,), SERVE_P, dtype=torch.long, device="meta")
+    return dryrun.Prepared(
+        lambda: decode_step(cfg, params, tok, cache, pos, ctx),
+        (params, tok, cache, pos), SERVE_B, 0)
+
+
+def _moe_full_one_process(cfg, f32_logits: bool) -> dict:
+    """The parent's one-process run of a full-width model on the card,
+    routed as the mesh's ranks group their tokens (``mesh_groups``): the
+    scoring forward (kernels) at S1's traffic, its losses and routes; the
+    plain prefill (flash's plain version) and four decode steps fed its
+    argmax, their logits and routes; the same with every attention through
+    SDPA in bf16 (``sdpa_everywhere``) on those routes (each step's gap,
+    the bf16 bound); and a float32 rerun on the plain run's
+    tokens, its routes (and its logits when ``f32_logits``; else cut after
+    each routing: a float32 copy of arctic's expert stacks is 53.5 GB)."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.model import init_cache
+    from repro_torch.models.transformer import lm_per_sample_loss
+    params = moe_weights(cfg, ShardCtx(), dryrun.SEED)
+    one = {}
+    with torch.no_grad(), mesh_groups(MOE_DP):
+        batch = dryrun.make_batch(cfg, MOE_B, MOE_S, "cuda",
+                                  _gen(dryrun.SEED))
+        rec = []
+        with dispatch_spy(rec):
+            one["losses"] = lm_per_sample_loss(
+                cfg, params, batch, scoring=True)[0].float().cpu()
+        one["score_routes"] = rec
+        del batch
+        prompts = dryrun.make_batch(cfg, SERVE_B, SERVE_P, "cuda",
+                                    _gen(dryrun.SEED + 1),
+                                    train=False)["tokens"]
+
+        def serve(c, attention, tokens, dtype=torch.bfloat16, replay=None,
+                  stop=False):
+            rec = []
+            cache = init_cache(c, SERVE_B, SERVE_P + TEACHER_STEPS,
+                               dtype=dtype, device="cuda")
+            with dispatch_spy(rec, replay, stop=stop):
+                seq, fed, _ = _serve_teacher(c, params, prompts, cache,
+                                             ShardCtx(), tokens,
+                                             attention=attention)
+            return seq, fed, rec
+        plain, fed, one["routes"] = serve(cfg, plain_attention, None)
+        fed = torch.stack(fed).cpu()
+        sdpa, _, _ = serve(cfg, sdpa_everywhere, fed, replay=one["routes"])
+        one["sdpa_gap"] = [logit_errs(a, b) for a, b in zip(sdpa, plain)]
+        f32, _, one["routes_f32"] = serve(
+            dataclasses.replace(cfg, compute_dtype="float32"),
+            plain_attention, fed, torch.float32, stop=not f32_logits)
+    one.update(prompts=prompts.cpu(), tokens=fed,
+               logits=torch.stack(plain).float().cpu(),
+               logits_f32=(torch.stack(f32).cpu() if f32_logits else None))
+    del params, plain, sdpa, f32
+    torch.cuda.empty_cache()
+    return one
+
+
+def _moe_smoke_one_process(base, variant: str) -> dict:
+    """The parent's one-process ES step of a smoke case (routed as the
+    mesh's ranks group their tokens): its scoring losses, selected rows,
+    moments and routes."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import lm_per_sample_loss, tree_map
+    cfg = dryrun.apply_variant(base, dryrun.VARIANTS[variant])[0]
+    with mesh_groups(MOE_DP):
+        prep = dryrun.prepare(base, ShapeConfig("s1", MOE_S, MOE_B, "train"),
+                              dryrun.VARIANTS[variant], "cuda",
+                              minibatch=MOE_MB)
+        params, opt, batch = prep.args[0], prep.args[1], prep.args[-1]
+        with torch.no_grad():
+            losses = lm_per_sample_loss(cfg, params, batch, scoring=True)[0]
+        rec = []
+        with dispatch_spy(rec):
+            metrics = prep.step()[1]
+    return {"losses": losses.float().cpu(),
+            "selected": metrics["selected"].cpu(), "routes": rec,
+            "m": tree_map(lambda t: t.float().cpu(), opt.m),
+            "v": tree_map(lambda t: t.float().cpu(), opt.v)}
+
+
+def _moe_full_rank(cfg, mesh, one: dict, wrappers: dict,
+                   f32_logits: bool) -> dict:
+    """A rank's full-width calls on the one-process run's routes: the
+    scoring forward, the prefill and four decode steps (bf16, measured:
+    the scoring forward, the prefill and the first decode step), then the
+    float32 rerun of the prefill and decode steps on their own routes."""
+    import dataclasses
+
+    from repro_torch.distributed.sharding import make_ctx
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import init_cache
+    from repro_torch.models.transformer import lm_per_sample_loss
+    ctx = make_ctx(cfg, mesh, "train")
+    dctx = make_ctx(cfg, mesh, "decode")
+    c = ctx.coord("batch")
+    params = moe_weights(cfg, ctx, dryrun.SEED)
+    lo, n = ctx.local("batch", MOE_B)
+    batch = {k: v[lo:lo + n].clone() for k, v in dryrun.make_batch(
+        cfg, MOE_B, MOE_S, "cuda", _gen(dryrun.SEED)).items()}
+    res = {"score": {}, "prefill": {}, "decode": {}}
+    rec = []
+    with torch.no_grad():
+        with dispatch_spy(rec, one["score_routes"], c), \
+                mesh_counted(wrappers, res["score"]):
+            losses = lm_per_sample_loss(cfg, params, batch, scoring=True,
+                                        ctx=ctx)[0]
+        losses = ctx.all_gather(losses, "batch", 0)
+    res["score"]["loss_err"] = (losses.float().cpu()
+                                - one["losses"]).abs().max().item()
+    res["score"]["flips"] = sum(f for *_, f in rec)
+    res["score"]["routes_bad"] = _routes_bad(rec, one["score_routes"], c)
+    del batch, losses
+    lo, n = dctx.local("batch", SERVE_B)
+    prompts = one["prompts"][lo:lo + n].cuda()
+    tokens = one["tokens"][:, lo:lo + n]
+    cache = init_cache(cfg, SERVE_B, SERVE_P + TEACHER_STEPS, device="cuda",
+                       ctx=dctx)
+    res["cache_shape"] = list(cache["kv"]["k"].shape)
+    rec = []
+    with torch.no_grad(), dispatch_spy(rec, one["routes"], c):
+        _, _, res["logit_errs"] = _serve_teacher(
+            cfg, params, prompts, cache, dctx, tokens,
+            one["logits"][:, lo:lo + n],
+            counted=(wrappers, [res["prefill"], res["decode"]]))
+    res["serve_flips"] = sum(f for *_, f in rec)
+    res["serve_routes_bad"] = _routes_bad(rec, one["routes"], c)
+    del cache
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cache = init_cache(f32, SERVE_B, SERVE_P + TEACHER_STEPS,
+                       dtype=torch.float32, device="cuda", ctx=dctx)
+    rec = []
+    want = one["logits_f32"][:, lo:lo + n] if f32_logits else None
+    with torch.no_grad(), dispatch_spy(rec, stop=not f32_logits):
+        _, _, res["logit_errs_f32"] = _serve_teacher(
+            f32, params, prompts, cache, dctx, tokens, want,
+            attention=plain_attention)
+    res["routes_f32_bad"] = _routes_bad(rec, one["routes_f32"], c)
+    del params, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def _moe_smoke_rank(base, variant: str, mesh, one: dict,
+                    wrappers: dict) -> dict:
+    """A rank's ES step of a smoke case on the one-process run's weights,
+    rows and routes, held as phase ``mesh`` holds the dense step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import make_ctx, shard_tree
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import (init_lm, lm_per_sample_loss,
+                                                param_axes, tree_leaves,
+                                                tree_map)
+    cfg = dryrun.apply_variant(base, dryrun.VARIANTS[variant])[0]
+    ctx = make_ctx(cfg, mesh, "train")
+    c = ctx.coord("batch")
+    axes = param_axes(cfg)
+    full = init_lm(base, _gen(dryrun.SEED), "cuda")     # prepare's draws
+    params = tree_map(lambda t: t.contiguous().clone(),
+                      shard_tree(full, axes, ctx))
+    del full
+    lo, n = ctx.local("batch", MOE_B)
+    batch = {k: v[lo:lo + n].clone() for k, v in dryrun.make_batch(
+        base, MOE_B, MOE_S, "cuda", _gen(dryrun.SEED)).items()}
+    prep = dryrun.prepare(base, ShapeConfig("s1", MOE_S, MOE_B, "train"),
+                          dryrun.VARIANTS[variant], "cuda",
+                          minibatch=MOE_MB, mesh=mesh, params=params,
+                          batch=batch)
+    params, opt = prep.args[0], prep.args[1]
+    rec = []
+    with torch.no_grad(), dispatch_spy(rec, one["routes"][:cfg.num_layers],
+                                       c):
+        losses = ctx.all_gather(lm_per_sample_loss(
+            cfg, params, batch, scoring=True, ctx=ctx)[0], "batch", 0)
+    train = {"loss_err": (losses.float().cpu()
+                          - one["losses"]).abs().max().item()}
+    p0 = [t.float().cpu() for t in tree_leaves(params)]
+    rec = []
+    with dispatch_spy(rec, one["routes"], c), mesh_counted(wrappers, train):
+        metrics = prep.step()[1]
+    train["flips"] = sum(f for *_, f in rec)
+    train["routes_bad"] = _routes_bad(rec, one["routes"], c)
+    train["selected_equal"] = bool(torch.equal(metrics["selected"].cpu(),
+                                               one["selected"]))
+    for f in ("m", "v"):
+        num = den = 0.0
+        for a, w in zip(tree_leaves(getattr(opt, f)), tree_leaves(
+                shard_tree(one[f], axes, ctx))):
+            num += (a.cpu().float() - w).square().sum().item()
+            den += w.square().sum().item()
+        train[f"{f}_rel_l2"] = (num / den) ** 0.5
+    train["update_err"] = max(
+        (p1.cpu().float() - w).abs().max().item() for p1, w in zip(
+            tree_leaves(params), adamw_first_step(
+                p0, [t.cpu().float() for t in tree_leaves(opt.m)],
+                [t.cpu().float() for t in tree_leaves(opt.v)],
+                float(metrics["lr_scale"]))))
+    return train
+
+
+def mesh_moe_child(rank: int, port: int, ref_dir: str) -> None:
+    """``--mesh-moe-child RANK PORT DIR``: phase ``mesh_moe``'s ranks on
+    their own (when phase ``mesh`` has not started them)."""
+    import torch.distributed as dist
+    mesh = _join_mesh(rank, port)
+    emit(_mesh_moe_rank(rank, mesh, ref_dir))
+    dist.destroy_process_group()
+
+
+def _mesh_moe_rank(rank: int, mesh, ref_dir: str) -> dict:
+    """One rank of phase ``mesh_moe``: the full-width calls of each of
+    ``moe_full_cfgs``, then the ES step of each of ``moe_smoke_cases``,
+    against the parent's one-process runs (``DIR/<name>.pt``)."""
+    wrappers = {**_wrappers(), **_xent_halves()}
+    res = {"mesh_moe_child": rank, "coordinate": mesh.get_coordinate()}
+    for name, cfg in moe_full_cfgs().items():
+        one = torch.load(Path(ref_dir) / f"{name}.pt")
+        res[name] = _moe_full_rank(cfg, mesh, one, wrappers,
+                                   one["logits_f32"] is not None)
+    for name, (base, variant) in moe_smoke_cases().items():
+        res[name] = _moe_smoke_rank(base, variant, mesh,
+                                    torch.load(Path(ref_dir) / f"{name}.pt"),
+                                    wrappers)
+    return res
+
+
+class MeshRanks:
+    """Four ``chip_smoke.py FLAG RANK PORT DIR`` processes sharing the
+    card (rank 0's store on a free localhost port), each one's output read
+    by a thread of its own: a rank blocked on a full pipe would stall the
+    others inside a collective."""
+
+    def __init__(self, flag: str, ref_dir: Path):
+        import socket
+        import threading
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        sys.stdout.flush()
+        self.dir = ref_dir
+        self.procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), flag, str(r),
+             str(port), str(ref_dir)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(4)]
+        self.lines = [[] for _ in self.procs]
+        self.readers = [threading.Thread(target=self._read, args=(r,),
+                                         daemon=True) for r in range(4)]
+        for t in self.readers:
+            t.start()
+        self.closed = False
+        atexit.register(self.close)       # no rank outlives this script
+
+    def _read(self, r: int) -> None:
+        for line in self.procs[r].stdout:
+            self.lines[r].append(line)
+
+    def wait_for(self, tag: str, timeout: float = 600) -> list:
+        """Each rank's last JSON line that starts with ``{"<tag>"``;
+        raises when a rank ends without one, or at ``timeout``."""
+        t0 = time.perf_counter()
+        while True:
+            got = [[json.loads(x) for x in lines
+                    if x.startswith('{"' + tag + '"')]
+                   for lines in self.lines]
+            if all(got):
+                return [g[-1] for g in got]
+            for r, (p, g) in enumerate(zip(self.procs, got)):
+                if not g and p.poll() is not None:
+                    self.readers[r].join(5)
+                    raise AssertionError(
+                        f"{tag}: rank {r} failed (rc {p.returncode}):\n"
+                        f"{''.join(self.lines[r])[-4000:]}")
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"{tag}: no answer in {timeout} s")
+            time.sleep(0.2)
+
+    def close(self) -> None:
+        """Tell ranks that wait for more work to stop; end them all."""
+        if self.closed:
+            return
+        self.closed = True
+        self.dir.mkdir(parents=True, exist_ok=True)
+        (self.dir / "stop").touch()
+        for p in self.procs:
+            try:
+                p.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for t in self.readers:
+            t.join(5)
+
+
+def _held_to_trace(what: str, meas: dict, p: dict, launches: dict) -> None:
+    """A measured call against the dry run's trace of it: FLOPs (by
+    dtype) and collectives equal, the peak within PEAK_SLACK, and the
+    launches ``launches``."""
+    if meas["flops"] != p["flops"] or \
+            meas["flops_by_dtype"] != p["flops_by_dtype"]:
+        raise AssertionError(f"{what}: {meas['flops']} FLOPs, the trace "
+                             f"{p['flops']}")
+    want = p["memory"]["peak_bytes"]
+    if abs(meas["peak_bytes"] - want) > max(PEAK_SLACK[0] * want,
+                                            PEAK_SLACK[1]):
+        raise AssertionError(f"{what}: peak {meas['peak_bytes']} B against "
+                             f"{want} B predicted")
+    if meas["collectives"] != p["collectives"]:
+        raise AssertionError(f"{what}: collectives {meas['collectives']}, "
+                             f"the trace {p['collectives']}")
+    if meas["launches"] != launches:
+        raise AssertionError(f"{what}: launches {meas['launches']}, "
+                             f"expected {launches}")
+
+
+def phase_mesh_moe(ranks: Optional["MeshRanks"] = None) -> dict:
+    """The MoE family sharded over a (2, 2) ("data", "model") mesh of four
+    processes on the one card (gloo, staged through pinned host buffers;
+    ``ranks``: phase ``mesh``'s, waiting for this work, else its own).
+    grok-1 (TP experts) and arctic (EP experts and its dense residual) at
+    published widths, one layer each (``moe_full_cfgs``): the scoring
+    forward at S1's traffic (grouped dispatch: a group a data rank), SV's
+    prefill and four decode steps (a decode step's 8 tokens make one
+    group spanning both data ranks). The whole ES step, which four
+    full-width ranks cannot hold on one card, at the smoke configs
+    (``moe_smoke_cases``). Each rank is held to this process's
+    one-process run, routed as the mesh groups its tokens:
+    - bf16 runs on the one-process run's routes (``dispatch_spy``
+      replay): the kept pairs equal, the scoring losses within MODEL_TOL,
+      each of the prefill's and decode steps' logits within max(MODEL_TOL,
+      SDPA_SLACK x that step's gap in a one-process run with every
+      attention through SDPA-bf16) per logit: with one layer a decode
+      step's cache is the same in any two runs, so only a second bf16
+      attention at the step itself measures the model's bf16
+      disagreement there (a prefill-only SDPA run's decode gaps are 0);
+      the tokens whose own top k would differ are counted (``flips``);
+    - float32 reruns of the prefill and decode steps on their own routes:
+      the expert ids and kept pairs equal the one-process float32 run's,
+      and grok's logits within MESH_F32_TOL (arctic's rerun stops at each
+      routing: four ranks' float32 copies of its expert stacks do not fit
+      beside their bf16 ones);
+    - the smoke ES steps as phase ``mesh`` holds the dense one.
+    Each measured call against the dry run's trace of it under a fake
+    group of 4, made first: FLOPs and collectives equal, the peak within
+    5 % or 256 MiB, and its launches. Returns the ranks' launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import mesh_info
+    t0 = time.perf_counter()
+    full, smoke = moe_full_cfgs(), moe_smoke_cases()
+    s1 = ShapeConfig("s1", MOE_S, MOE_B, "train")
+    pred = {}
+    with dryrun.fake_mesh(MESH_SHAPE, MESH_NAMES) as m:
+        info = mesh_info(m)
+        for name, cfg in full.items():
+            pred[name] = {kind: dryrun.count(_moe_prepared(cfg, kind, m),
+                                             info)
+                          for kind in ("score", "prefill", "decode")}
+        for name, (base, variant) in smoke.items():
+            pred[name] = dryrun.count(dryrun.prepare(
+                base, s1, dryrun.VARIANTS[variant], minibatch=MOE_MB,
+                mesh=m), info)
+    trace_s = time.perf_counter() - t0
+    ref_dir = ranks.dir if ranks is not None else Path(tempfile.mkdtemp())
+    try:
+        t1 = time.perf_counter()
+        ones = {}
+        for name, cfg in full.items():
+            ones[name] = _moe_full_one_process(cfg, name == "grok")
+            torch.save(ones[name], ref_dir / f"{name}.pt")
+        for name, (base, variant) in smoke.items():
+            torch.save(_moe_smoke_one_process(base, variant),
+                       ref_dir / f"{name}.pt")
+        torch.cuda.empty_cache()
+        one_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        if ranks is None:
+            ranks = MeshRanks("--mesh-moe-child", ref_dir)
+        else:
+            (ref_dir / "go").touch()
+        got = ranks.wait_for("mesh_moe_child")
+        ranks_s = time.perf_counter() - t1
+    finally:
+        if ranks is not None:
+            ranks.close()
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    bounds = {name: [max(MODEL_TOL, SDPA_SLACK * rel)
+                     for _, rel in ones[name]["sdpa_gap"]] for name in full}
+    emit({"phase": "mesh_moe", "mesh": list(MESH_SHAPE), "trace_s": trace_s,
+          "one_process_s": one_s, "ranks_s": ranks_s,
+          "bounds": {"loss": MODEL_TOL, "logits_bf16": bounds,
+                     "logits_f32": f"{MESH_F32_TOL} x max(1, |logit|)",
+                     "m_rel_l2": MESH_M_TOL, "v_rel_l2": MESH_V_TOL,
+                     "update": MESH_UPDATE_TOL, "peak": list(PEAK_SLACK)},
+          "one_process_sdpa_gap": {n: ones[n]["sdpa_gap"] for n in full},
+          "predicted": {n: ({k: {f: v[f] for f in (
+              "flops", "flops_by_dtype", "collectives",
+              "collective_bytes_total", "memory", "roofline")}
+              for k, v in p.items()} if n in full else {f: p[f] for f in (
+                  "flops", "collectives", "collective_bytes_total",
+                  "memory")}) for n, p in pred.items()},
+          "ranks": got, "card": smi_line()})
+    one_layer = {"score": {"gqa_flash_attention": 1, "xent_partials": 1,
+                           "xent_combine": 1},
+                 "prefill": {"gqa_flash_attention": 1}, "decode": {}}
+    launches = {"gqa_flash_attention": 0, "fused_xent": 0,
+                "fused_score_update": 0}
+
+    def add(meas):
+        launches["gqa_flash_attention"] += meas["launches"].get(
+            "gqa_flash_attention", 0)
+        launches["fused_xent"] += meas["launches"].get("xent_partials", 0)
+        launches["fused_score_update"] += meas["launches"].get(
+            "fused_score_update", 0)
+    for r, g in enumerate(got):
+        for name in full:
+            res, where = g[name], f"mesh_moe: rank {r} {name}"
+            if res["score"]["loss_err"] > MODEL_TOL:
+                raise AssertionError(f"{where} scoring losses off by "
+                                     f"{res['score']['loss_err']}")
+            for key in ("score", ):
+                if res[key]["routes_bad"]:
+                    raise AssertionError(f"{where} {key} routes "
+                                         f"{res[key]['routes_bad']}")
+            for key in ("serve_routes_bad", "routes_f32_bad"):
+                if res[key]:
+                    raise AssertionError(f"{where} {key} {res[key]}")
+            for i, (_, rel) in enumerate(res["logit_errs"]):
+                if rel > bounds[name][i]:
+                    raise AssertionError(f"{where} bf16 logits of step {i} "
+                                         f"off by {rel} (bound "
+                                         f"{bounds[name][i]})")
+            for e, rel in res["logit_errs_f32"]:
+                if rel > MESH_F32_TOL:
+                    raise AssertionError(f"{where} float32 logits off by "
+                                         f"{e} ({rel} relative)")
+            if name == "grok" and len(res["logit_errs_f32"]) != \
+                    TEACHER_STEPS + 1:
+                raise AssertionError(f"{where}: float32 logits unchecked")
+            for kind in ("score", "prefill", "decode"):
+                _held_to_trace(f"{where} {kind}", res[kind],
+                               pred[name][kind], one_layer[kind])
+                add(res[kind])
+        for name, (base, _) in smoke.items():
+            t, where = g[name], f"mesh_moe: rank {r} {name}"
+            if not t["selected_equal"]:
+                raise AssertionError(f"{where} selected other rows")
+            if t["routes_bad"]:
+                raise AssertionError(f"{where} routes {t['routes_bad']}")
+            if t["loss_err"] > MODEL_TOL:
+                raise AssertionError(f"{where} scoring losses off by "
+                                     f"{t['loss_err']}")
+            if t["m_rel_l2"] > MESH_M_TOL or t["v_rel_l2"] > MESH_V_TOL:
+                raise AssertionError(f"{where} moments off: m by "
+                                     f"{t['m_rel_l2']}, v by "
+                                     f"{t['v_rel_l2']}")
+            if not t["update_err"] <= MESH_UPDATE_TOL:
+                raise AssertionError(f"{where} weights off AdamW's step by "
+                                     f"{t['update_err']}")
+            _held_to_trace(where, t, pred[name], {
+                "gqa_flash_attention": base.num_layers, "xent_partials": 1,
+                "xent_combine": 1, "fused_score_update": 1})
+            add(t)
     return launches
 
 
@@ -4633,6 +5383,9 @@ def main() -> None:
     if len(sys.argv) == 5 and sys.argv[1] == "--mesh-child":
         mesh_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return
+    if len(sys.argv) == 5 and sys.argv[1] == "--mesh-moe-child":
+        mesh_moe_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
     if len(sys.argv) > 1:
         sys.exit("usage: chip_smoke.py [--store-bench SRC | --segsum-bench "
                  "SRC | --steps-bench SRC]")
@@ -4650,7 +5403,7 @@ def main() -> None:
     errs = timed("check", phase_check)
     times = timed("time", phase_time)
     timed("model", phase_model)
-    launches = {}
+    launches, kept = {}, {}
     runs = {**{p: lambda p=p: phase_path(p) for p in PATH_ARGS},
             **{p: lambda p=p: phase_sharded(p) for p in SHARDED_ARGS},
             "train_tokens": phase_train_tokens, "serve": phase_serve,
@@ -4661,7 +5414,9 @@ def main() -> None:
             **{p: lambda p=p: phase_engine(p) for p in ENGINE_PATHS},
             "serve_vlm": phase_serve_vlm,
             "serve_encdec": phase_serve_encdec, "dryrun": phase_dryrun,
-            "mesh": phase_mesh}
+            # phase mesh's four processes go on to phase mesh_moe's work
+            "mesh": lambda: phase_mesh(kept),
+            "mesh_moe": lambda: phase_mesh_moe(kept.pop("ranks"))}
     for name, run in runs.items():
         for k, v in timed(name, run).items():
             launches[k] = launches.get(k, 0) + v

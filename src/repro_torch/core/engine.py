@@ -45,9 +45,9 @@ mutates in place: parameters and optimizer moments in the optimizer, the
 score state in the store kernel. Steps return the state for symmetry with
 the reference.
 
-On a mesh (``ctx``, the reference's ``ShardCtx``: dense models) each rank
-holds its shards of the state and its rows of every batch (over the data
-axes). The scoring forward's losses and the sample ids are all-gathered,
+On a mesh (``ctx``, the reference's ``ShardCtx``: dense and MoE models)
+each rank holds its shards of the state and its rows of every batch (over
+the data axes). The scoring forward's losses and the sample ids are all-gathered,
 so every rank updates its copy of the replicated store with the same B
 ids and draws the same Gumbel top-k (the same generator seed); the
 selected rows are taken from the all-gathered batch, b / dp a rank. The

@@ -12,8 +12,13 @@ Meshes (``launch/mesh.py``): ("data", "model") = (16, 16) single-pod,
   vocab       embedding / unembedding rows  -> "model"
   embed       a parameter's d_model dim     -> the data axes under FSDP
               (``fsdp_params``), else replicated
-  expert, moe_mlp, expert_cap, expert_group -> the MoE family's (a later
-              slice on a mesh)
+  expert      MoE expert count              -> "model" under EP (when the
+              experts cover it; else TP, with the reference's warning)
+  moe_mlp     an expert's FFN hidden width  -> "model" under TP
+  expert_cap  MoE dispatch capacity         -> the data axes for TP with
+              ``moe_groups`` 1 (global dispatch)
+  expert_group MoE dispatch group           -> the data axes unless
+              ``moe_groups`` is 1 (``models/moe.py`` places the work)
   cache_seq   KV-cache sequence dim         -> "model" when decoding with
               replicated KV heads; the data axes at ``long_500k``
   scores      the score store's rows        -> the data axes

@@ -20,8 +20,9 @@ and traces rank 0's SPMD program: its shards of the parameters,
 optimizer state and cache (the reference's rules, ``distributed/
 sharding.py``), its rows of the batch, and the collectives it calls.
 Every rule shards evenly (a cell that does not is refused with the
-reason), so every rank runs the same shapes and rank 0 stands for every
-device. The reference's HLO text parsing has no counterpart: the
+reason: arctic's 56 heads over a 16-way "model" axis, a MoE capacity
+over the data axes), so every rank runs the same shapes and rank 0
+stands for every device. The reference's HLO text parsing has no counterpart: the
 collectives report themselves.
 
   train   : ``ESEngine.es_step`` / ``baseline_step`` / ``pipelined_step``
@@ -69,7 +70,9 @@ from ..core.engine import ESConfig, ESEngine, init_train_state
 from ..distributed.sharding import check_even, make_ctx
 from ..models.model import (cache_axes, decode_step, encoder_len,
                             image_tokens, init_cache, prefill)
-from ..models.transformer import MESH_LATER, init_lm, param_axes
+from ..models.moe import dispatch_layout
+from ..models.transformer import (MESH_FAMILIES, MESH_LATER, init_lm,
+                                  param_axes)
 from ..optim.adamw import OptConfig
 from ..optim.schedule import get_schedule
 from .cost import CostCounter, summary, tree_bytes
@@ -141,9 +144,7 @@ def refusal(variant_name: str, cfg: Optional[ModelConfig] = None,
                     f"one-card cell shards no model (--mesh single or "
                     f"multi)")
         return None
-    if "moe_sharding" in fields or variant_name.startswith("moe"):
-        return f"variant {variant_name}: {MESH_LATER['moe']}"
-    if cfg is not None and cfg.family != "dense":
+    if cfg is not None and cfg.family not in MESH_FAMILIES:
         return f"{cfg.name}: {MESH_LATER[cfg.family]}"
     return None
 
@@ -327,6 +328,28 @@ def uneven(cfg: ModelConfig, shape: ShapeConfig, b: int, ctx
     dp = ctx.size("batch")
     rows = [shape.global_batch] + ([b] if shape.kind == "train" else [])
     bad = [f"batch {n} over {dp}" for n in rows if n % dp]
+    # the MoE dispatch of each forward's tokens (a capacity split over the
+    # data axes must split evenly: the reference's partitioner pads it)
+    if cfg.num_experts:
+        B, S = shape.global_batch, shape.seq_len
+        calls = {"train": (B * S, b * S), "prefill": (B * S,),
+                 "decode": (B,)}[shape.kind]
+        for T in calls:
+            try:
+                dispatch_layout(ctx, T, cfg.num_experts,
+                                cfg.num_experts_per_tok,
+                                cfg.capacity_factor, cfg.moe_groups)
+            except (ValueError, NotImplementedError) as e:
+                bad.append(f"the MoE dispatch of {T} tokens: {e}")
+    # whole heads a rank: the projections' H x hd columns may split evenly
+    # where the heads do not (arctic's 56 over 16; the reference's
+    # partitioner pads them to 64, which the port does not)
+    for name, n in (("heads", cfg.num_heads),
+                    ("kv_heads", cfg.num_kv_heads)):
+        m = ctx.size(name)
+        if n % m:
+            bad.append(f"{name} {n} over "
+                       f"{'/'.join(ctx.dims(name))} {m}")
     return "; ".join(([why] if why else []) + bad) or None
 
 

@@ -25,7 +25,7 @@ object: ``wall_s`` and ``tokens_per_s`` of a second ``generate`` (the
 first warms up), and row 0's tokens.
 
 On a mesh (``Server(ctx=...)``, the reference's ``ShardCtx``; the dense
-family) each rank holds its shards of the parameters and the cache and
+and MoE families) each rank holds its shards of the parameters and the cache and
 serves its rows of the prompt batch; the logits are gathered over the
 vocabulary, each row's noise is its row of one (B, V) draw, and
 ``generate`` returns every row on every rank.

@@ -20,7 +20,9 @@ enters a column-parallel product through ``enter`` (identity forward,
 all-reduce of the gradient), a row-parallel product leaves through
 ``psum`` (all-reduce forward, identity gradient), and an FSDP parameter
 is all-gathered where it is used (``gather``: its gradient is
-reduce-scattered).
+reduce-scattered). A result sharded over an axis whose ranks then repeat
+the same work is made whole by ``unshard`` (its gradient: the rank's
+slice).
 """
 from __future__ import annotations
 
@@ -200,6 +202,16 @@ class ShardCtx:
             return x
         return _Gather.apply(x, self, logical, dim % x.ndim)
 
+    def unshard(self, x: torch.Tensor, logical: str,
+                dim: int = 0) -> torch.Tensor:
+        """All-gather forward, this rank's slice of the gradient backward:
+        a sharded result made whole for work that every rank of the axis
+        repeats alike (EP's expert outputs before the combine), whose
+        gradient each of those ranks holds whole."""
+        if self.size(logical) == 1:
+            return x
+        return _Unshard.apply(x, self, logical, dim % x.ndim)
+
     def gather_params(self, params, axes):
         """``params`` with each leaf's "embed" dimension all-gathered
         where FSDP splits it (a nested dict, as ``axes``)."""
@@ -245,6 +257,18 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, g):
         return (ctx.sctx.reduce_scatter(g.contiguous(), ctx.logical,
                                         ctx.dim), None, None, None)
+
+
+class _Unshard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sctx, logical, dim):
+        ctx.sctx, ctx.logical, ctx.dim = sctx, logical, dim
+        return sctx.all_gather(x, logical, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo, n = ctx.sctx.local(ctx.logical, g.shape[ctx.dim])
+        return g.narrow(ctx.dim, lo, n), None, None, None
 
 
 def local_shape(shape: Sequence[int], axes: Sequence[Optional[str]],

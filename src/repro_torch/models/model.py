@@ -35,11 +35,14 @@ them, and stores them in bfloat16 as the cache's new ``cross_kv``, sized
 by this prompt's memory (the reference's prefill returns its own); each
 decode step attends to the stored K/V.
 
-On a mesh (``ctx``, the dense family; reference :87, :158, :319) the
-cache is this rank's shard of the reference's (``cache_axes``): its
-batch rows, its KV heads, or with replicated KV heads under the decode
-rules every head over S_max / m positions (``attention.decode_attn``).
-The logits are gathered over the vocabulary.
+On a mesh (``ctx``, the dense and MoE families; reference :87, :158,
+:319) the cache is this rank's shard of the reference's
+(``cache_axes``): its batch rows, its KV heads, or with replicated KV
+heads under the decode rules every head over S_max / m positions
+(``attention.decode_attn``). The logits are gathered over the
+vocabulary. A MoE decode step's few tokens usually make one dispatch
+group spanning the data ranks (``moe._auto_groups`` on the global
+count).
 """
 from __future__ import annotations
 

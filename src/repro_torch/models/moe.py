@@ -15,8 +15,35 @@ The reference's static-shape scheme, kept exactly:
 Capacity comes from the token count of the call: a scoring forward over
 the meta-batch and a training forward over the minibatch route with
 different ``C``, as in the reference. ``n_groups`` 0 is the reference's
-auto grouping, which is 1 without a device mesh; an explicit G splits the
-tokens into G groups of their own capacity.
+auto grouping (``_auto_groups``), which is 1 without a device mesh; an
+explicit G splits the tokens into G groups of their own capacity.
+
+On a mesh (``ctx``; reference :84-162) x is this rank's rows and G and C
+come from the global token count, so every rank routes as the reference's
+partitioned program does. The rules place the work:
+
+* "expert_group" over the data axes, G a multiple of their size: each
+  rank routes its own G / dp groups, with no communication;
+* a group spanning data ranks (G < dp: ``_auto_groups``' guard at a
+  decode step, or ``moe_groups`` 1, whose "expert_group" is None): the
+  group's tokens are all-gathered over the data axes (their gradient
+  reduce-scattered), every rank of the group routes them alike (the same
+  C, the same drops) and combines only its own rows;
+* "expert" over "model" (EP): the rank runs its E / m experts on every
+  slot of the group (the tokens are there already), then the expert
+  outputs are all-gathered over "model" before the combine, as the
+  reference un-shards them (:145);
+* "moe_mlp" over "model" (TP): the rank runs every expert on its d_ff /
+  m slice, and the ``w_down`` partial sums are all-reduced (``psum``);
+* "expert_cap" over the data axes (TP with ``moe_groups`` 1, the paper's
+  global dispatch): the rank runs its C / dp slots of each expert, and
+  the outputs are all-gathered over the data axes along C.
+
+The dispatched tokens enter the experts through ``enter`` (identity
+forward, the gradient summed over "model", whose ranks each run a part
+of the experts); the router and the combine are repeated on every
+"model" rank. A layout the rules give that this scheme cannot produce
+raises, naming the rule.
 
 Ties among router logits go to the lower expert index, as
 ``jax.lax.top_k`` orders them: the top k come from a stable descending
@@ -32,7 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.selection import top_k as _top_k
-from .layers import Init, Params
+from .layers import Init, Params, ShardCtx
 
 
 def moe_axes(lead: Tuple[int, ...]) -> Dict:
@@ -77,46 +104,130 @@ def route(logits: torch.Tensor, k: int, C: int
     return gates, eidx, slot, keep
 
 
-def moe_fwd(params: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
-            capacity_factor: float = 1.25, n_groups: int = 0
-            ) -> torch.Tensor:
-    """x (B, S, d) -> (B, S, d), in x's dtype. ``n_groups``: 0 = auto (1
-    on one device), G = explicit (1 when G does not divide B*S)."""
-    B, S, d = x.shape
-    T = B * S
-    E, k = n_experts, top_k
-    G = 1 if n_groups == 0 else n_groups
+def _auto_groups(ctx: ShardCtx, T: int, n_experts: int) -> int:
+    """The reference's auto grouping (:61-81): G is the product of the
+    "batch" axes' sizes (1 without a mesh, or when G does not divide T),
+    halved while a group would route fewer than 2E tokens. ``T`` is the
+    global token count (the reference's partitioner sees global shapes):
+    a decode step of B tokens often ends with G below the data size."""
+    if ctx.mesh is None or not ctx.dims("batch"):
+        return 1
+    g = ctx.size("batch")
+    if g <= 0 or T % g:
+        return 1
+    while g > 1 and (T // g) < 2 * n_experts:
+        g //= 2
+    return g if g > 0 and T % g == 0 else 1
+
+
+def _placement(ctx: ShardCtx, G: int) -> Tuple[int, int]:
+    """(groups this rank routes, data ranks a group spans) for G groups
+    over the "batch" axes: G / dp local groups each, or one group shared
+    by dp / G ranks."""
+    dp = ctx.size("batch")
+    for rule in ("expert_group", "expert_cap"):
+        if ctx.dims(rule) not in ((), ctx.dims("batch")):
+            raise NotImplementedError(
+                f"{rule!r} over {ctx.dims(rule)}: the MoE dispatch splits "
+                f"it over the batch's axes {ctx.dims('batch')} or not at "
+                f"all")
+    if G % dp == 0:
+        return G // dp, 1
+    if dp % G == 0:
+        return 1, dp // G
+    raise NotImplementedError(
+        f"'expert_group': {G} dispatch groups over {dp} data ranks (each "
+        f"rank takes whole groups, or a group whole ranks)")
+
+
+def dispatch_layout(ctx: ShardCtx, T: int, n_experts: int, top_k: int,
+                    capacity_factor: float = 1.25, n_groups: int = 0
+                    ) -> Tuple[int, int, int, int, int]:
+    """The dispatch of ``T`` global tokens under ``ctx``'s rules -> (G,
+    tokens a group, capacity C, groups this rank routes, data ranks a
+    group spans); raises for a layout the dispatch cannot produce,
+    naming the rule."""
+    E = n_experts
+    G = _auto_groups(ctx, T, E) if n_groups == 0 else n_groups
     if T % G:
         G = 1
     Tg = T // G
-    C = capacity(Tg, E, k, capacity_factor)
+    C = capacity(Tg, E, top_k, capacity_factor)
+    Gl, span = _placement(ctx, G)
+    if ctx.size("expert") > 1 and ctx.size("moe_mlp") > 1:
+        raise NotImplementedError("'expert' and 'moe_mlp' both sharded: "
+                                  "experts split one way only")
+    ctx.local("expert", E)                # each splits evenly, or raises
+    ctx.local("expert_cap", C)
+    return G, Tg, C, Gl, span
+
+
+def moe_fwd(params: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
+            capacity_factor: float = 1.25, n_groups: int = 0,
+            ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d), in x's dtype; on a mesh x is this rank's
+    rows and ``params`` its shards. ``n_groups``: 0 = auto
+    (``_auto_groups``), G = explicit (1 when G does not divide the global
+    token count)."""
+    B, S, d = x.shape
+    E, k = n_experts, top_k
+    _, Tg, C, Gl, span = dispatch_layout(
+        ctx, B * S * ctx.size("batch"), E, k, capacity_factor, n_groups)
     dt = x.dtype
-    xt = x.reshape(G, Tg, d)
+    own = 0
+    if span == 1:
+        xt = x.reshape(Gl, Tg, d)
+    else:                  # the group's tokens, from every rank it spans
+        c = ctx.coord("batch")
+        grp = c // span
+        xt = ctx.gather(x.reshape(B * S, d), "batch", 0).narrow(
+            0, grp * Tg, Tg)[None]
+        own = (c % span) * B * S
     logits = (xt @ params["router"].to(dt)).float()
-    gates, _, slot, keep = route(logits, k, C)
+    gates, eidx, slot, keep = route(logits, k, C)
 
-    # scatter the pairs into (G, E*C + 1, d); the overflow row is dropped
+    # scatter the pairs into (Gl, E*C + 1, d); the overflow row is dropped.
+    # On a mesh the buffer holds this rank's experts and capacity slots
+    # only: another rank's pairs go to the overflow row
+    e_lo, e_n = ctx.local("expert", E)
+    c_lo, c_n = ctx.local("expert_cap", C)
+    xe = ctx.enter(ctx.enter(xt, "expert"), "moe_mlp")
     tok_idx = torch.arange(Tg, device=x.device).repeat_interleave(k)
-    src = xt[:, tok_idx]                                  # (G, Tgk, d)
-    index = slot[..., None].expand(G, Tg * k, d)
-    buf = torch.zeros(G, E * C + 1, d, dtype=dt, device=x.device)
-    buf = buf.scatter(1, index, src)
-    buf = buf[:, :E * C].reshape(G, E, C, d)
+    src = xe[:, tok_idx]                                  # (Gl, Tgk, d)
+    rows = slot
+    if (e_n, c_n) != (E, C):
+        flat_e = eidx.reshape(Gl, Tg * k)
+        pos = slot - flat_e * C
+        mine = (keep & (flat_e >= e_lo) & (flat_e < e_lo + e_n)
+                & (pos >= c_lo) & (pos < c_lo + c_n))
+        rows = torch.where(mine, (flat_e - e_lo) * c_n + pos - c_lo,
+                           torch.full_like(slot, e_n * c_n))
+    buf = torch.zeros(Gl, e_n * c_n + 1, d, dtype=dt, device=x.device)
+    buf = buf.scatter(1, rows[..., None].expand(Gl, Tg * k, d), src)
+    buf = buf[:, :e_n * c_n].reshape(Gl, e_n, c_n, d)
 
-    # the experts' SwiGLU, batched over (G, E, C)
+    # the experts' SwiGLU, batched over (Gl, E, C): this rank's experts,
+    # d_ff slice and slots
     g_ = torch.einsum("gecd,edf->gecf", buf, params["w_gate"].to(dt))
     u = torch.einsum("gecd,edf->gecf", buf, params["w_up"].to(dt))
     h = F.silu(g_) * u
     out = torch.einsum("gecf,efd->gecd", h, params["w_down"].to(dt))
+    out = ctx.psum(out, "moe_mlp")             # TP: the d_ff partial sums
+    out = ctx.unshard(out, "expert", 1)        # EP: every expert's outputs
+    out = ctx.gather(out, "expert_cap", 2)     # every capacity slot
 
     # combine: each pair's slot output times its gate (0 when dropped),
-    # summed over a token's k pairs in k order (the reference's scatter-add)
-    out_flat = torch.cat([out.reshape(G, E * C, d),
-                          torch.zeros(G, 1, d, dtype=dt, device=x.device)],
+    # summed over a token's k pairs in k order (the reference's
+    # scatter-add); a spanning group's rank combines its own rows
+    n = B * S if span > 1 else Tg
+    slot = slot[:, own * k:(own + n) * k]
+    w = (gates.reshape(Gl, Tg * k)[:, own * k:(own + n) * k]
+         * keep[:, own * k:(own + n) * k].to(torch.float32)).to(dt)
+    out_flat = torch.cat([out.reshape(Gl, E * C, d),
+                          torch.zeros(Gl, 1, d, dtype=dt, device=x.device)],
                          dim=1)
-    w = (gates.reshape(G, Tg * k) * keep.to(torch.float32)).to(dt)
-    per_slot = (out_flat.gather(1, index) * w[..., None]).reshape(
-        G, Tg, k, d)
+    per_slot = (out_flat.gather(1, slot[..., None].expand(Gl, n * k, d))
+                * w[..., None]).reshape(Gl, n, k, d)
     y = per_slot[:, :, 0]
     for j in range(1, k):
         y = y + per_slot[:, :, j]

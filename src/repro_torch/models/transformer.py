@@ -49,13 +49,16 @@ with segment-isolated attention (dense and moe only: the SSM recurrences
 have no segment reset); ``lm_per_segment_loss`` is the packed step's one
 differentiated forward.
 
-On a mesh (``ctx``, the dense family; reference :158-178, :283, :361)
-every leaf is this rank's shard of the reference's (``param_axes``):
-heads, the MLP's hidden width and the vocabulary over "model", and under
+On a mesh (``ctx``, the dense and MoE families, ``MESH_FAMILIES``;
+reference :158-178, :283, :361) every leaf is this rank's shard of the
+reference's (``param_axes``): heads, the MLP's hidden width (arctic's
+dense residual's too) and the vocabulary over "model"; the experts over
+"model" under EP ("expert") or their d_ff under TP ("moe_mlp"); and under
 FSDP the "embed" dimension over the data axes, all-gathered inside each
 layer's remat region (so the gathered copy is recomputed, not kept) and
-its gradient reduce-scattered. The batch is this rank's rows. The other
-families on a mesh are later slices (``MESH_LATER``).
+its gradient reduce-scattered. The batch is this rank's rows; the MoE
+dispatch groups them as ``models/moe.py`` says. The ssm, hybrid, vlm and
+encdec families on a mesh are later slices (``MESH_LATER``).
 """
 from __future__ import annotations
 
@@ -83,8 +86,6 @@ from .ssm import init_mamba2, mamba2_axes, mamba2_fwd
 
 # the slice that brings each family onto a mesh (refused until then)
 MESH_LATER = {
-    "moe": "the MoE family on a mesh (EP and TP, moe_groups, all-to-all "
-           "dispatch) is a later slice",
     "ssm": "the SSM family on a mesh (SSD heads over 'mlp', "
            "ssm_cache_axes, long_500k's cache over the data axes) is a "
            "later slice",
@@ -96,9 +97,12 @@ MESH_LATER = {
 }
 
 
+MESH_FAMILIES = ("dense", "moe")
+
+
 def check_mesh(cfg: ModelConfig, ctx: ShardCtx) -> None:
     """Refuse a family that does not run on a mesh yet, with its reason."""
-    if ctx.mesh is not None and cfg.family != "dense":
+    if ctx.mesh is not None and cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: {MESH_LATER[cfg.family]}")
 
 
@@ -369,9 +373,9 @@ def ffn(cfg: ModelConfig, p: Params, h: torch.Tensor,
         y = moe_fwd(p["moe"], h, n_experts=cfg.num_experts,
                     top_k=cfg.num_experts_per_tok,
                     capacity_factor=cfg.capacity_factor,
-                    n_groups=cfg.moe_groups)
+                    n_groups=cfg.moe_groups, ctx=ctx)
         if cfg.moe_dense_residual:
-            y = y + mlp_fwd("swiglu", p["dense_res"], h)
+            y = y + mlp_fwd("swiglu", p["dense_res"], h, ctx)
         return y
     return mlp_fwd(cfg.mlp_kind, p["mlp"], h, ctx)
 

@@ -4,26 +4,37 @@ for JAX: run with ``XLA_FLAGS=--xla_force_host_platform_device_count=4``).
     python tests/_torch_mesh_child.py main OUT_DIR
     python tests/_torch_mesh_child.py rank R PORT OUT_DIR   (started by main)
 
-``main`` writes ``OUT_DIR/result.json`` with, for qwen1.5 smoke and for
-llama3 smoke with ``fsdp_params=True, shard_kv_heads=False`` on a (2, 2)
-("data", "model") mesh (B 16, S 32, b 4):
+``main`` writes ``OUT_DIR/result.json`` with, for each case of ``CASES``
+on a (2, 2) ("data", "model") mesh (B 16, S 32, b 4): qwen1.5 smoke;
+llama3 smoke with ``fsdp_params=True, shard_kv_heads=False``; grok smoke
+(TP experts) with ``moe_groups`` 0 (grouped dispatch) and 1 (global
+dispatch, the capacity split over "data"); arctic smoke (EP experts and
+the dense residual) with ``moe_groups`` 0:
 
 * ``ref``: the reference's ``es_step``, ``prefill`` and ``decode_step``
   lowered on an ``AxisType.Auto`` mesh of the four host devices, their
-  per-device FLOPs and collectives (``hlo_cost.analyze``);
+  per-device FLOPs and collectives (``hlo_cost.analyze``); a MoE case's
+  decode step at the serving batch SB, whose 4 tokens make one dispatch
+  group spanning both data ranks;
 * ``port``: the port's trace of the same cells under a fake group of 4
   (``dryrun.prepare`` / ``dryrun.count``): FLOPs, collectives, launches;
 * ``ranks``: four gloo ranks on the CPU, each running the port's sharded
   ``es_step``, ``prefill`` and four ``decode_step``s on its shards of the
   reference's float32 parameters, batch and Gumbel noise, held to the
-  reference's one-device outputs; and each collective of ``ShardCtx``
-  on known tensors.
+  reference's one-device outputs (a MoE case's too: the reference routes
+  with the mesh's dispatch groups, ``_one_device_ctx``, and every MoE
+  call's expert ids and kept slots are compared); each collective of
+  ``ShardCtx`` on known tensors; and the engine's other steps and the
+  server on the mesh against the one-process port (``_paths_held``).
 """
+import contextlib
 import dataclasses
 import json
 import os
 import subprocess
 import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -34,17 +45,30 @@ sys.path.insert(0, str(HERE.parent / "src"))
 B, S, b, N = 16, 32, 4, 64
 P, GEN, SB = 16, 4, 4          # serving: prompt, decode steps, batch
 ATOL, RTOL = 1e-5, 1e-4        # test_torch_families.py's
-ARCHS = {"qwen1.5-0.5b": {},
-         "llama3-8b": {"fsdp_params": True, "shard_kv_heads": False}}
+# case -> (arch, its smoke config's overrides)
+CASES = {"qwen1.5-0.5b": ("qwen1.5-0.5b", {}),
+         "llama3-8b": ("llama3-8b", {"fsdp_params": True,
+                                     "shard_kv_heads": False}),
+         "grok-g0": ("grok-1-314b", {"moe_groups": 0}),
+         "grok-g1": ("grok-1-314b", {"moe_groups": 1}),
+         "arctic-g0": ("arctic-480b", {"moe_groups": 0})}
+MOE = ("grok-g0", "grok-g1", "arctic-g0")
 FAST = {"xla_backend_optimization_level": 0,
         "xla_llvm_disable_expensive_passes": True}
 
 
-def _cfgs(arch, **over):
+def _cfgs(case, **over):
     from repro.configs.registry import get_smoke_config
     from repro_torch.configs import ModelConfig
-    cfg = dataclasses.replace(get_smoke_config(arch), **ARCHS[arch], **over)
+    arch, fields = CASES[case]
+    cfg = dataclasses.replace(get_smoke_config(arch), **fields, **over)
     return cfg, ModelConfig(**dataclasses.asdict(cfg))
+
+
+def decode_batch(case):
+    """The batch of a case's decode cell: SB for MoE (a dispatch group
+    spanning the data ranks), B for the dense cases."""
+    return SB if case in MOE else B
 
 
 # ---------------------------------------------------------------------------
@@ -89,7 +113,8 @@ def ref_mesh_costs(arch):
             ctx = make_ctx(cfg, mesh, kind)
             ps, axes = abstract_params_and_axes(cfg)
             p_sh = axes_to_sharding(axes, ctx)
-            shape = ShapeConfig("s", S, B, kind)
+            shape = ShapeConfig("s", S, B if kind == "prefill"
+                                else decode_batch(arch), kind)
             if kind == "prefill":
                 bs, b_sh, cs, c_sh = prefill_specs(cfg, shape, ctx)
                 fn = (lambda p, x, c, ctx=ctx:
@@ -116,9 +141,10 @@ def port_mesh_costs(arch):
     with dryrun.fake_mesh((2, 2), ("data", "model")) as m:
         info = mesh_info(m)
         for kind in ("train", "prefill", "decode"):
+            rows = decode_batch(arch) if kind == "decode" else B
             r = dryrun.count(dryrun.prepare(
-                tcfg, ShapeConfig(kind, S, B, kind), minibatch=b, mesh=m),
-                info)
+                tcfg, ShapeConfig(kind, S, rows, kind), minibatch=b,
+                mesh=m), info)
             out[kind] = {k: r[k] for k in ("flops", "collectives",
                                            "collective_bytes_total",
                                            "kernel_launches", "roofline")}
@@ -135,7 +161,8 @@ def api_parity():
     (2, 2) mesh (the port's over a fake group of 4): ``make_mesh_for``'s
     ``mesh_info``, and for each dense arch and kind ``make_ctx`` with
     ``rule_overrides`` (its rules), ``axes_to_sharding`` of the
-    parameters' axes, ``batch_sharding`` and ``replicated`` (as specs)
+    parameters' axes (the experts' under EP and TP), ``batch_sharding``
+    and ``replicated`` (as specs)
     -> {"mesh_for": [port, reference], "differ": [what differs]}."""
     import jax
     from jax.sharding import AxisType
@@ -160,7 +187,7 @@ def api_parity():
                            jmesh.mesh_info(jmesh.make_mesh_for(4, 2))]
         for arch in list_archs():
             cfg = get_config(arch)
-            if cfg.family != "dense":
+            if cfg.family not in ("dense", "moe"):
                 continue
             tcfg = ModelConfig(**dataclasses.asdict(cfg))
             holder = []
@@ -190,20 +217,86 @@ def api_parity():
 # the reference on one device, float32: what the four ranks are held to
 # ---------------------------------------------------------------------------
 
+def _one_device_ctx(cfg):
+    """The reference's ``ShardCtx`` for its one-device run: no mesh for a
+    dense case; for a MoE case the (2, 2) mesh's shape and rules with
+    every sharding constraint a no-op, so that ``_auto_groups`` takes the
+    mesh's dispatch groups (G and C from the global token count, as the
+    partitioned program does) while the arithmetic runs on one device."""
+    from repro.distributed.sharding import make_rules
+    from repro.models.layers import ShardCtx
+    if not cfg.num_experts:
+        return ShardCtx()
+
+    class Mesh:
+        axis_names = ("data", "model")
+        shape = {"data": 2, "model": 2}
+
+    class OneDevice(ShardCtx):
+        def constrain(self, x, *logical_axes):
+            return x
+    return OneDevice(mesh=Mesh(), rules=make_rules(cfg, Mesh(), "train"))
+
+
+class _Proxy:
+    """A module whose attributes are another's but for ``over``."""
+    def __init__(self, inner, **over):
+        self._inner = inner
+        self.__dict__.update(over)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+# the list a thread's traces report the reference's MoE routes to
+ROUTES = threading.local()
+
+
+def _record_routes():
+    """The reference MoE's ``jax.lax.top_k`` (its routing) reporting each
+    call's expert ids (G, Tg, k), in program order, to the list that
+    ``ROUTES.record`` holds in the tracing thread (none: no report), from
+    inside the compiled program (an ordered debug callback)."""
+    import jax
+    from repro.models import moe as jmoe
+
+    def top_k(logits, k):
+        vals, idx = jax.lax.top_k(logits, k)
+        record = getattr(ROUTES, "record", None)
+        if record is not None:
+            jax.debug.callback(lambda i: record.append(np.asarray(i)), idx,
+                               ordered=True)
+        return vals, idx
+    jmoe.jax = _Proxy(jax, lax=_Proxy(jax.lax, top_k=top_k))
+
+
+def _kept(eidx, cfg):
+    """The reference's kept pairs (G, Tg*k) for expert ids (G, Tg, k), with
+    its own capacity for the group size (``moe.py:109-120``)."""
+    from repro.models.moe import capacity
+    G, Tg, k = eidx.shape
+    C = capacity(Tg, cfg.num_experts, k, cfg.capacity_factor)
+    flat = eidx.reshape(G, Tg * k)
+    oh = (flat[..., None] == np.arange(cfg.num_experts)).astype(np.int64)
+    pos = np.sum((np.cumsum(oh, axis=1) - oh) * oh, axis=-1)
+    return pos < C
+
+
 def ref_one_device(arch, out_dir):
     import jax
     import jax.numpy as jnp
     from repro.core import engine as jengine
     from repro.core.scores import ESScores
     from repro.models import model as jmodel
-    from repro.models.layers import ShardCtx
     from repro.optim.adamw import OptConfig
     from repro.optim.schedule import get_schedule
     cfg, _ = _cfgs(arch, compute_dtype="float32")
+    ctx = _one_device_ctx(cfg)
+    routes = ROUTES.record = []
     es = jengine.ESConfig(minibatch=b, n_train=N, seq_chunk=0)
     opt = OptConfig(lr=1e-3)
     eng = jengine.ESEngine(cfg, es, opt, get_schedule("cosine", 16, 0),
-                           ShardCtx())
+                           ctx)
     rng = np.random.default_rng(5)
     s0 = rng.uniform(0.5, 6.0, N).astype(np.float32)
     w0 = rng.uniform(0.5, 6.0, N).astype(np.float32)
@@ -222,12 +315,12 @@ def ref_one_device(arch, out_dir):
         new, metrics = eng.es_step(state, bt)
         cache = jmodel.init_cache(cfg, SB, P + GEN)
         logits, cache = jmodel.prefill(cfg, state.params, {"tokens": pr},
-                                       cache, ShardCtx())
+                                       cache, ctx)
         seq = [logits]
         for i in range(GEN):
             t = jnp.argmax(seq[-1], axis=-1)[:, None].astype(jnp.int32)
             logits, cache = jmodel.decode_step(cfg, state.params, t, cache,
-                                               P + i, ShardCtx())
+                                               P + i, ctx)
             seq.append(logits)
         return state.params, gumbel, new, metrics, jnp.stack(seq)
 
@@ -236,12 +329,16 @@ def ref_one_device(arch, out_dir):
             jnp.asarray(prompts))
     params, gumbel, new, metrics, logits = jax.device_get(
         jax.jit(run).lower(*args).compile(compiler_options=FAST)(*args))
+    jax.effects_barrier()
     flat = {f"{prefix}/{k}": v.astype(np.float32)
             for prefix, tree in (("p0", params), ("p1", new.params),
                                  ("m1", new.opt.m), ("v1", new.opt.v))
             for k, v in _flatten(tree).items()}
+    ROUTES.record = None
     np.savez(out_dir / f"{arch}.npz", s0=s0, w0=w0, gumbel=gumbel,
              prompts=prompts, logits=logits,
+             **{f"routes/{i}": r for i, r in enumerate(routes)},
+             **{f"kept/{i}": _kept(r, cfg) for i, r in enumerate(routes)},
              s1=np.asarray(new.scores.s), w1=np.asarray(new.scores.w),
              seen1=np.asarray(new.scores.seen),
              loss=np.float32(metrics["loss"]),
@@ -301,8 +398,10 @@ def rank_main(rank, port, out_dir):
                             rank=rank, world_size=4)
     mesh = make_mesh((2, 2), ("data", "model"))
     report = {"collectives": _collectives_ok(mesh, rank)}
-    for arch in ARCHS:
+    for arch in CASES:
         _, cfg = _cfgs(arch, compute_dtype="float32")
+        routes = []
+        spy = _spy_routes(routes) if arch in MOE else None
         z = dict(np.load(out_dir / f"{arch}.npz"))
         axes = param_axes(cfg)
         ctx = make_ctx(cfg, mesh, "train")
@@ -357,10 +456,78 @@ def rank_main(rank, port, out_dir):
             pos += 1
         r["logit_err"] = errs
         r["cache_shape"] = list(cache["kv"]["k"].shape)
+        if spy is not None:
+            spy()
+            r["routes"] = _routes_held(routes, z, make_ctx(cfg, mesh))
         report[arch] = r
-    report["paths"] = {arch: _paths_held(mesh, arch) for arch in ARCHS}
+    report["paths"] = {arch: _paths_held(mesh, arch) for arch in CASES}
     (out_dir / f"rank{rank}.json").write_text(json.dumps(report))
     dist.destroy_process_group()
+
+
+def _spy_routes(record):
+    """Record each port MoE call's (expert ids, kept pairs) in call order;
+    -> a function that takes the spy out."""
+    from repro_torch.models import moe
+    inner = moe.route
+
+    def route(logits, k, C):
+        out = inner(logits, k, C)
+        record.append((out[1].numpy(), out[3].numpy()))
+        return out
+    moe.route = route
+
+    def undo():
+        moe.route = inner
+    return undo
+
+
+def _routes_held(routes, z, ctx):
+    """The rank's MoE calls against the reference's one-device routes:
+    as many calls, and each call's expert ids and kept pairs those of the
+    reference's groups this rank routed (its own G / dp groups, or the
+    whole group it shares) -> failures."""
+    want = sorted((k for k in z if k.startswith("routes/")),
+                  key=lambda k: int(k.split("/")[1]))
+    if len(routes) != len(want):
+        return [f"{len(routes)} MoE calls, the reference {len(want)}"]
+    bad = []
+    for i, ((eidx, keep), key) in enumerate(zip(routes, want)):
+        ref_e, ref_k = z[key], z[f"kept/{key.split('/')[1]}"]
+        if eidx.shape[0] != ref_e.shape[0]:        # local groups
+            n = eidx.shape[0]
+            lo = ctx.coord("batch") * n
+            ref_e, ref_k = ref_e[lo:lo + n], ref_k[lo:lo + n]
+        if eidx.shape != ref_e.shape or not (eidx == ref_e).all():
+            bad.append(f"expert ids {i}")
+        if keep.shape != ref_k.shape or not (keep == ref_k).all():
+            bad.append(f"kept {i}")
+    return bad
+
+
+@contextlib.contextmanager
+def _mesh_groups(dp):
+    """The port's one-process MoE calls group their tokens as a mesh of
+    ``dp`` data ranks does (``_auto_groups`` on the global token count),
+    so that they route as the mesh's; the mesh's own calls are
+    untouched."""
+    from repro_torch.models import moe
+    real = moe._auto_groups
+
+    def groups(ctx, T, E):
+        if ctx.mesh is not None:
+            return real(ctx, T, E)
+        g = dp
+        if T % g:
+            return 1
+        while g > 1 and T // g < 2 * E:
+            g //= 2
+        return g
+    moe._auto_groups = groups
+    try:
+        yield
+    finally:
+        moe._auto_groups = real
 
 
 def _paths_held(mesh, arch):
@@ -371,7 +538,13 @@ def _paths_held(mesh, arch):
     second selects on the stale weights); ``prime_step``, a
     ``pipelined_step`` and a ``flush_step``; ``Server.generate`` at
     temperature 0.8; and a state that ``init_train_state(ctx)`` draws
-    without parameters (``_init_held``)."""
+    without parameters (``_init_held``). A MoE case's one-process calls
+    take the mesh's dispatch groups (``_mesh_groups``)."""
+    with _mesh_groups(2):
+        return _paths_held_grouped(mesh, arch)
+
+
+def _paths_held_grouped(mesh, arch):
     import torch
     from repro_torch.core import engine as tengine
     from repro_torch.core.frequency import FreqSchedule
@@ -565,9 +738,13 @@ def main(out_dir):
     import socket
     out_dir.mkdir(parents=True, exist_ok=True)
     result = {"ref": {}, "port": {}}
-    for arch in ARCHS:
-        ref_one_device(arch, out_dir)
-    # the four ranks run while this process lowers the reference
+    _record_routes()
+    # the reference's programs compile in threads (XLA's compiler leaves
+    # the interpreter lock); the port's traces share one fake process
+    # group, so they stay on this thread; the four ranks run while this
+    # process lowers the reference on the mesh
+    with ThreadPoolExecutor(len(CASES)) as pool:
+        list(pool.map(lambda c: ref_one_device(c, out_dir), CASES))
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -576,10 +753,12 @@ def main(out_dir):
                                str(port), str(out_dir)], env=env)
              for r in range(4)]
     try:
-        for arch in ARCHS:
-            result["ref"][arch] = ref_mesh_costs(arch)
-            result["port"][arch] = port_mesh_costs(arch)
-        result["api"] = api_parity()
+        with ThreadPoolExecutor(len(CASES)) as pool:
+            ref = {c: pool.submit(ref_mesh_costs, c) for c in CASES}
+            for arch in CASES:
+                result["port"][arch] = port_mesh_costs(arch)
+            result["api"] = api_parity()
+            result["ref"] = {c: f.result() for c, f in ref.items()}
         rcs = [p.wait(timeout=300) for p in procs]
     finally:
         for p in procs:

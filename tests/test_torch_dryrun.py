@@ -12,8 +12,8 @@
   version's outputs on CPU inputs, no launch counted, and the FLOPs of a
   lone kernel or matmul exact.
 * A full-width cell traces on ``meta`` in seconds; ``long_500k`` of a
-  dense arch is skipped and a sharding variant refused, with the
-  reference's reasons.
+  dense arch is skipped and a sharding variant refused on one card (the
+  variants that place experts too), with the reference's reasons.
 """
 import dataclasses
 
@@ -207,3 +207,10 @@ def test_full_width_cell_skips_and_refusals():
     assert not ok and skip["skipped"] == why and "flops" not in skip
     refused = dryrun.run_cell("qwen1.5-0.5b", "train_4k", "fsdp_on")
     assert "shards no model" in refused["refused"]
+    # the variants that place experts shard a model: a mesh's, not one
+    # card's; the dispatch variants run on one card
+    for variant in ("moe_tp", "moe_ep", "moe_grouped_ep", "moe_tp_bf16"):
+        got = dryrun.run_cell("grok-1-314b", "decode_32k", variant)
+        assert "sets moe_sharding" in got["refused"], variant
+    assert dryrun.refusal("moe_grouped") is None
+    assert dryrun.refusal("es_ungrouped") is None

@@ -1,11 +1,18 @@
-"""PyTorch port: model sharding over a ``DeviceMesh`` (the dense family).
+"""PyTorch port: model sharding over a ``DeviceMesh`` (the dense and MoE
+families).
 
 * ``make_rules`` gives the reference's rules for every arch and kind on
   the reference's (16, 16) and (2, 16, 16) meshes; ``param_axes`` is the
   reference ``init_lm``'s axes tree at full width.
+* ``_auto_groups`` equals the reference's over data sizes, token counts
+  and expert counts; EP falls back to TP with the reference's warning; a
+  dispatch layout the port cannot produce raises, naming its rule.
 * One subprocess (``_torch_mesh_child.py``, four host devices for JAX) on
-  a (2, 2) ("data", "model") mesh, qwen1.5 smoke and llama3 smoke with
-  ``fsdp_params=True, shard_kv_heads=False``, B 16, S 32, b 4:
+  a (2, 2) ("data", "model") mesh, qwen1.5 smoke, llama3 smoke with
+  ``fsdp_params=True, shard_kv_heads=False``, grok smoke (TP experts)
+  with ``moe_groups`` 0 and 1 and arctic smoke (EP experts, the dense
+  residual) with ``moe_groups`` 0, B 16, S 32, b 4 (a MoE decode step at
+  batch 4: one dispatch group spanning both data ranks):
   - the port's fake-group trace has the reference's per-device FLOPs
     (``hlo_cost.analyze``): prefill and decode exactly; the ES step less
     the reference's one-hot einsums (2 x (B + b) / dp x S x V / m) and,
@@ -17,7 +24,10 @@
   - four gloo ranks run the port's sharded ``es_step``, ``prefill`` and
     four ``decode_step``s on their shards of the reference's float32
     parameters, batch and Gumbel noise, held to the reference's one-device
-    outputs at ``test_torch_families.py``'s tolerances and exemptions.
+    outputs at ``test_torch_families.py``'s tolerances and exemptions;
+    a MoE case's every dispatch (the expert ids and kept pairs of each
+    group the rank routes) equals the reference's, whose one-device run
+    groups the tokens as the mesh does.
 * The checkpointed cross-entropy's extra work against the reference at
   one device: the recomputed logits less the one-hot einsums, to the FLOP.
 * ``xent_partials``' plain version leaves a label outside its vocabulary
@@ -45,6 +55,7 @@ from repro.core import engine as jengine
 from repro.distributed.sharding import make_ctx as jmake_ctx
 from repro.distributed.sharding import make_rules as jmake_rules
 from repro.launch.hlo_cost import analyze
+from repro.models import moe as jmoe
 from repro.models.layers import ShardCtx
 from repro.models.transformer import init_lm as jinit_lm
 from repro.optim.adamw import OptConfig
@@ -58,6 +69,8 @@ from repro_torch.kernels.xent.ref import xent_ref
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import (make_mesh, make_mesh_for,
                                      make_production_mesh, mesh_info)
+from repro_torch.models import moe as tmoe
+from repro_torch.models.layers import ShardCtx as PortShardCtx
 from repro_torch.models.transformer import param_axes
 
 HERE = Path(__file__).resolve().parent
@@ -66,6 +79,11 @@ KINDS = ("train", "prefill", "decode", "long")
 B, S, b, DP, M = 16, 32, 4, 2, 2
 ARCHS = {"qwen1.5-0.5b": {},
          "llama3-8b": {"fsdp_params": True, "shard_kv_heads": False}}
+# the child's MoE cases: case -> (arch, overrides of its smoke config)
+MOE = {"grok-g0": ("grok-1-314b", {"moe_groups": 0}),
+       "grok-g1": ("grok-1-314b", {"moe_groups": 1}),
+       "arctic-g0": ("arctic-480b", {"moe_groups": 0})}
+CASES = {**{a: (a, over) for a, over in ARCHS.items()}, **MOE}
 
 
 class _FakeMesh:
@@ -77,12 +95,16 @@ class _FakeMesh:
 
 class _PortMesh:
     """The same stand-in for the port's rules, which read a
-    ``DeviceMesh``'s ``mesh_dim_names`` and ``size(i)``."""
+    ``DeviceMesh``'s ``mesh_dim_names`` and ``size(i)`` (and a rank's
+    ``get_coordinate()``: rank 0's)."""
     def __init__(self, names, sizes):
         self.mesh_dim_names, self._sizes = names, sizes
 
     def size(self, i):
         return self._sizes[i]
+
+    def get_coordinate(self):
+        return [0] * len(self._sizes)
 
 
 def _tcfg(cfg):
@@ -181,8 +203,8 @@ def _kv_split(cfg):
 
 
 def test_mesh_flops_match_reference(mesh_run):
-    for arch, over in ARCHS.items():
-        cfg = dataclasses.replace(jget_smoke_config(arch), **over)
+    for arch, (name, over) in CASES.items():
+        cfg = dataclasses.replace(jget_smoke_config(name), **over)
         ref, port = mesh_run["ref"][arch], mesh_run["port"][arch]
         assert port["mesh_info"] == {"axis_names": ["data", "model"],
                                      "shape": [2, 2], "n_devices": 4}
@@ -292,7 +314,7 @@ def test_four_gloo_ranks_match_reference(mesh_run):
     assert mesh_run["rank_rcs"] == [0, 0, 0, 0]
     for rank, report in enumerate(mesh_run["ranks"]):
         assert all(report["collectives"].values()), rank
-        for arch in ARCHS:
+        for arch in CASES:
             r = report[arch]
             where = f"rank {rank} {arch}"
             np.testing.assert_allclose(*r["loss"], rtol=1e-5, err_msg=where)
@@ -302,6 +324,8 @@ def test_four_gloo_ranks_match_reference(mesh_run):
             assert r["bad"] == [], where
             assert r["eps_regime"] <= r["n_weights"] // 50, where
             assert max(r["logit_err"]) < 1e-4, (where, r["logit_err"])
+            if arch in MOE:
+                assert r["routes"] == [], (where, r["routes"])
         # llama decodes from a cache whose sequence is split over "model"
         assert report["llama3-8b"]["cache_shape"][2] == (S // 2 + 4) // M
         assert report["qwen1.5-0.5b"]["cache_shape"][3] == 4 // M
@@ -342,13 +366,100 @@ def test_run_cell_on_an_explicit_mesh_and_refusals():
     assert res["flops"] > 0 and res["collective_bytes_total"] > 0
     assert set(res["collectives"]) == {"all-reduce", "all-gather"}
     assert res["roofline"]["collective_s"] > 0
-    for arch, variant, why in (("mamba2-780m", "es", "SSM family"),
-                               ("qwen1.5-0.5b", "moe_ep", "MoE family"),
-                               ("seamless-m4t-large-v2", "es", "encdec")):
-        got = dryrun.run_cell(arch, "train_4k", variant, mesh="single")
+    # grok-1 on the reference's 16 x 16 mesh under the paper's global
+    # dispatch: every layer's tokens gathered over "data", the capacity
+    # split over it, the experts' d_ff over "model"
+    moe = dryrun.run_cell("grok-1-314b", "prefill_32k", "es_ungrouped",
+                          mesh="single")
+    assert moe["mesh_info"]["shape"] == [16, 16]
+    assert moe["flops"] > 0 and moe["kernel_launches"] == {"flash_attn": 64}
+    assert moe["collectives"]["all-gather"]["count"] > 64
+    assert "does not split evenly: heads 56 over model 16" in dryrun.run_cell(
+        "arctic-480b", "train_4k", "moe_grouped_ep", mesh="multi")["refused"]
+    for arch, why in (("mamba2-780m", "SSM family"),
+                      ("zamba2-2.7b", "hybrid family"),
+                      ("llama-3.2-vision-11b", "vlm and encdec"),
+                      ("seamless-m4t-large-v2", "vlm and encdec")):
+        got = dryrun.run_cell(arch, "train_4k", "es", mesh="single")
         assert why in got["refused"] and "later slice" in got["refused"]
     assert "shards no model" in dryrun.run_cell(
         "llama3-8b", "train_4k", "kv_shard")["refused"]
+    assert "shards no model" in dryrun.run_cell(
+        "grok-1-314b", "decode_32k", "moe_tp")["refused"]
+
+
+def _port_ctx(names, sizes, cfg, kind="train"):
+    """The port's ``ShardCtx`` of ``cfg``'s rules on a mesh stand-in."""
+    mesh = _PortMesh(names, sizes)
+    return PortShardCtx(mesh=mesh, rules=make_rules(cfg, mesh, kind))
+
+
+def test_auto_groups_matches_reference():
+    """The dispatch groups of a decode step (T = the batch) and a
+    prefill or training forward, on meshes of 1 to 32 data ranks, for
+    experts 4 to 128, with no mesh too."""
+    assert tmoe._auto_groups(PortShardCtx(), 4096, 8) == \
+        jmoe._auto_groups(ShardCtx(), 4096, 8) == 1
+    seen = set()
+    for names, sizes in ((("data", "model"), (1, 2)),
+                         (("data", "model"), (2, 2)),
+                         (("data", "model"), (4, 1)),
+                         (("data", "model"), (16, 16)),
+                         (("pod", "data", "model"), (2, 16, 16))):
+        for arch in ("grok-1-314b", "arctic-480b"):
+            cfg = jget_config(arch)
+            for kind in ("train", "decode", "long"):
+                jctx = jmake_ctx(cfg, _FakeMesh(names, sizes), kind)
+                tctx = _port_ctx(names, sizes, _tcfg(cfg), kind)
+                for T in (1, 4, 8, 12, 16, 64, 128, 256, 4096, 65536,
+                          1 << 20):
+                    for E in (4, 8, 128):
+                        got = tmoe._auto_groups(tctx, T, E)
+                        assert got == jmoe._auto_groups(jctx, T, E), \
+                            (names, sizes, kind, T, E)
+                        seen.add(got)
+    assert seen == {1, 2, 4, 8, 16, 32}
+
+
+def test_ep_falls_back_to_tp_with_the_reference_warning():
+    """EP needs E >= |model|: grok-1's 8 experts on a 16-way model axis
+    (``moe_ep``) fall back to TP, with the reference's warning."""
+    cfg = dataclasses.replace(jget_config("grok-1-314b"), moe_sharding="ep")
+    mesh = (("data", "model"), (16, 16))
+    with pytest.warns(UserWarning) as want:
+        jrules = jmake_rules(cfg, _FakeMesh(*mesh))
+    with pytest.warns(UserWarning, match="falling back to TP") as got:
+        trules = make_rules(_tcfg(cfg), _PortMesh(*mesh))
+    assert [str(w.message) for w in got] == [str(w.message) for w in want]
+    assert trules == jrules
+    rules = dict(trules)
+    assert rules["expert"] is None and rules["moe_mlp"] == "model"
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")      # arctic's 128 >= 16: EP
+        arctic = dict(make_rules(_tcfg(jget_config("arctic-480b")),
+                                 _PortMesh(*mesh)))
+    assert arctic["expert"] == "model" and arctic["moe_mlp"] is None
+
+
+def test_moe_layouts_the_port_cannot_produce_raise():
+    """A rule the dispatch cannot follow raises, naming the rule, rather
+    than replicating the work: 3 groups over 2 data ranks, a capacity
+    split over an axis that is not the batch's, a capacity that does not
+    split evenly."""
+    cfg = _tcfg(dataclasses.replace(jget_smoke_config("grok-1-314b"),
+                                    moe_groups=1))
+    ctx = _port_ctx(("data", "model"), (2, 2), cfg)
+    assert tmoe._placement(ctx, 2) == (1, 1)
+    assert tmoe._placement(ctx, 1) == (1, 2)
+    with pytest.raises(NotImplementedError, match="'expert_group': 3"):
+        tmoe._placement(ctx, 3)
+    odd = PortShardCtx(mesh=ctx.mesh, rules=tuple(
+        (k, "model" if k == "expert_cap" else v) for k, v in ctx.rules))
+    with pytest.raises(NotImplementedError, match="'expert_cap'"):
+        tmoe._placement(odd, 1)
+    wide = _port_ctx(("data", "model"), (8, 1), cfg)
+    with pytest.raises(ValueError, match="'expert_cap': 12 does not split"):
+        wide.local("expert_cap", 12)
 
 
 def test_checkpointed_xent_flop_gap():
