@@ -94,10 +94,10 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    over the admitted rows, a decode from the live weights; the admission
    latency); then the other families and ``--grad-compression`` (phase
    6c), each through the same entry points: ``train_mamba2``
-   (mamba2-780m at its published widths and depth, S1's traffic: one xent
-   call and one store update a step, no flash), ``train_zamba2``
-   (zamba2-2.7b at its published widths and depth, meta-batch 16,
-   minibatch 4: nine flash launches at head dim 80 a scoring leg),
+   (mamba2-780m at its published widths, 16 of 48 layers, S1's traffic:
+   one xent call and one store update a step, no flash), ``train_zamba2``
+   (zamba2-2.7b at its published widths, 3 of 9 sites, meta-batch 16,
+   minibatch 4: three flash launches at head dim 80 a scoring leg),
    ``train_moe`` (arctic's smoke config: 8 experts top-2 and a dense
    residual) and ``train_gc`` (S1 with ``--grad-compression``), 4 steps
    each; each family path holds its first scoring leg's per-sample losses
@@ -105,26 +105,26 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    and weights within 5e-2 and reports its scoring and training legs
    (host clock and device time); ``train_gc`` reports the compression
    leg and the residuals' bytes and holds ``compress_decompress`` on the
-   card to a CPU copy bitwise; ``serve_mamba2`` (full-width mamba2, no
-   kernel launch at all) and ``serve_moe`` (grok-1 at its published
+   card to a CPU copy bitwise; ``serve_mamba2`` (full-width mamba2, 16
+   of 48 layers, no kernel launch at all) and ``serve_moe`` (grok-1 at its published
    widths cut to 2 layers, 16 tokens; the checks at a dropless capacity)
    as ``serve``; then the vlm and encdec families (phase 6d), which the
    trainer refuses (no source makes their frontend stubs):
-   ``train_encdec`` (seamless-m4t-large-v2 at its published widths and
-   depth) and ``train_vlm`` (llama-3.2-vision-11b at its published widths,
+   ``train_encdec`` (seamless-m4t-large-v2 at its published widths, 12
+   + 12 of 24 + 24 layers) and ``train_vlm`` (llama-3.2-vision-11b at its published widths,
    depth cut 40 -> 5: one site, its gates drawn non-zero), each 4 serial
    ES steps through ``ESEngine.scheduled_step`` at S1's traffic on
    batches that carry frames (32, 128, 1,024) or image embeddings (32,
-   1,600, 4,096) drawn on the card in bf16 (launches a step: flash 48 or
+   1,600, 4,096) drawn on the card in bf16 (launches a step: flash 24 or
    5, xent 1, score update 1; the first scoring leg against the plain
-   forward; legs, peak, step times); ``serve_vlm`` (llama-3.2-vision-11b
-   at its published widths and depth, gates non-zero, 16 tokens: 40 flash
-   launches a prefill) and ``serve_encdec`` (seamless, 64 tokens: 48, the
-   encoder's 24 without the causal mask) as ``serve``, on the server's
+   forward; legs, peak, step times); ``serve_vlm`` (llama-3.2-vision-11b at
+   its published widths, 10 of 40 layers, gates non-zero, 16 tokens: 10
+   flash launches a prefill) and ``serve_encdec`` (seamless, 16 tokens: 24,
+   the encoder's 12 without the causal mask) as ``serve``, on the server's
    stubs. Every ``serve*`` path with attention also runs a third prefill
-   with its attention through SDPA in bf16: the kernel prefill's logits
-   are held within 5e-2 of the plain prefill's, or, past it, within 1.25
-   times the SDPA prefill's gap (``SDPA_SLACK``); then phase ``dryrun``:
+   with its attention through SDPA in bf16: the kernel prefill's logits are
+   held within 5e-2 of the plain prefill's, or, past it, within 1.25 times
+   the SDPA prefill's gap (``SDPA_SLACK``); then phase ``dryrun``:
    the dry run (``repro_torch.launch.dryrun``) predicts each of its cells
    on the ``meta`` device, and the card runs the same step (a warm-up
    step, then one under the same cost counter, with the launch counts
@@ -161,7 +161,13 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    trace of the same (2, 2) cell under a fake group of 4 (FLOPs equal,
    peak within 5 % or 256 MiB, collective bytes equal, launches: flash
    24 a scoring forward and a prefill on 8 local heads, xent's two
-   halves on the rank's vocabulary slice, one score update);
+   halves on the rank's vocabulary slice, one score update); then
+   ``mesh_moe`` (grok-1 and arctic, one layer each) and ``mesh_ssm``
+   (mamba2-780m, 2 layers, and zamba2-2.7b, one site, at published
+   widths, FSDP on: the ES step, SV's prefill and four decode steps in
+   bf16 and float32, the replicated Mamba2 leaves over "model", and the
+   ES state checkpointed from the four ranks and restored onto them and
+   onto one process, bitwise) on the same four processes;
 7. ``legs``: where a step's time goes (serial-ES legs and a profiled step;
    the packed step's legs and the segment-sum kernels' launches and device
    time inside its forward + backward; the int8 store update against the
@@ -177,9 +183,9 @@ Phases, run in order, each of which raises on failure (nothing is caught):
    device time both streams are busy), and the host syncs of one step of
    each under torch's sync debug mode, also with the drift cadence firing;
 10. ``memory``: ``train``, ``train_packed``, ``train_packed_m16`` and
-   ``train_long`` with the memory knobs off, then on (peak device
-   memory, the training leg's time and device time, the scoring leg, the
-   median step) and ``train`` with remat "full";
+   ``train_long``, 2 steps each, with the memory knobs off, then on (peak
+   device memory, the training leg's time and device time, the scoring
+   leg, the median step) and ``train`` with remat "full";
 11. ``prune``: the f32 and the int8 store at n = 2^20 and 2^24 rows,
    filled through their update kernels; the snapshot's time (device sync
    and copy to the host) held bitwise against the store's tensors copied
@@ -325,7 +331,7 @@ PER_UNIT = {
     # block at each of its 9 sites; arctic smoke: 2 layers) and one store
     # update; --grad-compression launches nothing of its own
     "train_mamba2": {"fused_xent": 1, "fused_score_update": 1},
-    "train_zamba2": {"fused_xent": 1, "gqa_flash_attention": 9,
+    "train_zamba2": {"fused_xent": 1, "gqa_flash_attention": 3,
                      "fused_score_update": 1},
     "train_moe": {"fused_xent": 1, "gqa_flash_attention": 2,
                   "fused_score_update": 1},
@@ -1695,16 +1701,17 @@ def _steps(args) -> int:
     return int(rev[rev.index("--max-steps") - 1])
 
 
-def phase_path(name: str, args=None, watch=None) -> dict:
+def phase_path(name: str, args=None, watch=None, model_cfg=None) -> dict:
     """Run one path through the trainer the CLI builds (``Trainer.train``)
     with every launch count set to 0 just before and read just after.
-    ``args`` replaces the path's own; ``watch(tr)``, called on the built
-    trainer, returns a check called as ``check(tr, out)`` after the run."""
+    ``args`` replaces the path's own, ``model_cfg`` the model its
+    ``--arch`` names; ``watch(tr)``, called on the built trainer, returns
+    a check called as ``check(tr, out)`` after the run."""
     args = args or PATH_ARGS[name]
     wrappers = _wrappers()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    tr = _trainer(args)
+    tr = _trainer(args, model_cfg)
     check = watch(tr) if watch else None
     for fn in wrappers.values():
         fn.launches = 0
@@ -2316,11 +2323,11 @@ def _es_args(arch: str, meta: int, mini: int, full: bool = True) -> list:
             "--n-samples", "1024"]
 
 
-# mamba2-780m at its published widths and depth (48 layers, d 1,536, state
-# 128, vocab 50,304): S1's traffic; no attention, so no flash launch
+# mamba2-780m at its published widths (d 1,536, state 128, vocab 50,304),
+# S1's traffic; no attention, so no flash launch
 MAMBA2_ARGS = _es_args("mamba2-780m", 32, 8)
-# zamba2-2.7b at its published widths and depth (54 Mamba2 layers, d 2,560,
-# 9 sites of the shared block with 32 heads of 80, d_ff 10,240)
+# zamba2-2.7b at its published widths (d 2,560, the shared block's 32
+# heads of 80, d_ff 10,240)
 ZAMBA2_ARGS = _es_args("zamba2-2.7b", 16, 4)
 # arctic's smoke config (8 experts top-2, a dense residual, bf16 weights):
 # the MoE step, its routing and its kernels at S1's traffic
@@ -2462,8 +2469,21 @@ FAMILY_WATCH = {"train_mamba2": scoring_watch, "train_zamba2": scoring_watch,
                 "train_gc": grad_compression_watch}
 
 
+# the family paths' depth, cut to pay for phase mesh_ssm: mamba2-780m 48
+# -> 16 layers, zamba2-2.7b 9 sites of 6 -> 3 (18 Mamba2 layers and 3 of
+# the shared block's flash launches a scoring leg)
+FAMILY_DEPTH = {"train_mamba2": {"num_layers": 16},
+                "train_zamba2": {"num_layers": 18}}
+
+
 def phase_family(name: str) -> dict:
-    return phase_path(name, FAMILY_ARGS[name], FAMILY_WATCH[name])
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = None
+    if name in FAMILY_DEPTH:
+        arch = FAMILY_ARGS[name][FAMILY_ARGS[name].index("--arch") + 1]
+        cfg = dataclasses.replace(get_config(arch), **FAMILY_DEPTH[name])
+    return phase_path(name, FAMILY_ARGS[name], FAMILY_WATCH[name], cfg)
 
 
 def grok1_cut():
@@ -2476,13 +2496,16 @@ def grok1_cut():
 
 
 def phase_serve_mamba2() -> dict:
-    """mamba2-780m at full width, 16 tokens (64 until the MoE mesh phase
-    needed the script's time): no attention, so the prefill launches no
-    kernel (and nothing else does). Decode is held to the forward in
-    float32 (``phase_serve``'s ``exact``)."""
+    """mamba2-780m at full width, 16 of 48 layers, 16 tokens (64 tokens
+    and 48 layers until the mesh phases needed the script's time): no
+    attention, so the prefill launches no kernel (and nothing else does).
+    Decode is held to the forward in float32 (``phase_serve``'s
+    ``exact``)."""
+    import dataclasses
     from repro_torch.configs import get_config
-    return phase_serve("serve_mamba2", get_config("mamba2-780m"), gen=16,
-                       expect={}, exact=True)
+    return phase_serve("serve_mamba2", dataclasses.replace(
+        get_config("mamba2-780m"), num_layers=16), gen=16, expect={},
+        exact=True)
 
 
 def phase_serve_moe() -> dict:
@@ -2532,11 +2555,13 @@ def vlm_one_site():
 
 
 def seamless():
-    """seamless-m4t-large-v2 at its published widths and depth (24
-    encoder and 24 decoder layers, d 1,024, 16 heads of 64, d_ff 8,192,
-    vocab 256,256, LayerNorm, GELU): 1.63 B parameters, 26.1 GB of state."""
+    """seamless-m4t-large-v2 at its published widths (d 1,024, 16 heads of
+    64, d_ff 8,192, vocab 256,256, LayerNorm, GELU), depth cut 24 + 24 ->
+    12 encoder and 12 decoder layers (to pay for phase mesh_ssm)."""
+    import dataclasses
     from repro_torch.configs import get_config
-    return get_config("seamless-m4t-large-v2")
+    return dataclasses.replace(get_config("seamless-m4t-large-v2"),
+                               num_layers=12, num_encoder_layers=12)
 
 
 # engine traffic: S1's (serial ES, meta-batch 32, minibatch 8, S 512, the
@@ -2548,7 +2573,7 @@ ENGINE_PATHS = {"train_encdec": seamless, "train_vlm": vlm_one_site}
 # a scoring leg's launches: one flash a self-attention layer (seamless: 24
 # encoder, non-causal at S 128, and 24 decoder), one xent call, one store
 # update; cross-attention is plain PyTorch
-ENGINE_UNIT = {"train_encdec": {"fused_xent": 1, "gqa_flash_attention": 48,
+ENGINE_UNIT = {"train_encdec": {"fused_xent": 1, "gqa_flash_attention": 24,
                                 "fused_score_update": 1},
                "train_vlm": {"fused_xent": 1, "gqa_flash_attention": 5,
                              "fused_score_update": 1}}
@@ -2633,22 +2658,23 @@ def phase_engine(name: str) -> dict:
 
 
 def phase_serve_vlm() -> dict:
-    """llama-3.2-vision-11b at its published widths and depth (46.1 GB of
-    float32 weights drawn on the card), gates non-zero, 16 tokens: 40
-    flash launches a prefill (GQA 32:8, hd 128); the 8 gated cross blocks
-    are plain. Decode held in bf16 where it meets MODEL_TOL, else in
-    float32 (``exact="auto"``)."""
+    """llama-3.2-vision-11b at its published widths, depth cut 40 -> 10
+    (2 sites of 5, to pay for phase mesh_ssm), gates non-zero, 16 tokens:
+    10 flash launches a prefill (GQA 32:8, hd 128); the 2 gated cross
+    blocks are plain. Decode held in bf16 where it meets MODEL_TOL, else
+    in float32 (``exact="auto"``)."""
+    import dataclasses
     from repro_torch.configs import get_config
-    return phase_serve("serve_vlm", get_config("llama-3.2-vision-11b"),
-                       gen=16, exact="auto", gates=True)
+    return phase_serve("serve_vlm", dataclasses.replace(
+        get_config("llama-3.2-vision-11b"), num_layers=10), gen=16,
+        exact="auto", gates=True)
 
 
 def phase_serve_encdec() -> dict:
-    """seamless-m4t-large-v2 at its published widths and depth, 16
-    tokens (64 until the MoE mesh phase needed the script's time): 48
-    flash launches a prefill (the encoder's 24 over 128 frames without
-    the causal mask, the decoder's 24); the encoder runs once a
-    ``generate``, in the prefill."""
+    """seamless-m4t-large-v2 at its published widths, 12 + 12 of 24 + 24
+    layers (``seamless``), 16 tokens: 24 flash launches a prefill (the
+    encoder's 12 over 128 frames without the causal mask, the decoder's
+    12); the encoder runs once a ``generate``, in the prefill."""
     return phase_serve("serve_encdec", seamless(), gen=16, exact="auto")
 
 
@@ -3503,13 +3529,19 @@ def train_leg(tr):
     return lambda: eng._loss_and_grads(st.params, sel)
 
 
+# a knob run's steps (its path's 4, cut to pay for phase mesh_ssm: the
+# peak is a first step's, the median step needs a second)
+KNOB_STEPS = 2
+
+
 def _knob_run(args, knobs: str) -> dict:
-    """One trainer run of ``args`` with ``knobs``: its peak device memory,
-    median step after the first and losses; then its training leg (and,
-    serial ES, its scoring leg) on the first batch, median of 3."""
+    """One trainer run of ``args`` (KNOB_STEPS steps) with ``knobs``: its
+    peak device memory, median step after the first and losses; then its
+    training leg (and, serial ES, its scoring leg) on the first batch,
+    median of 3."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    tr = _knob_trainer(args, knobs)
+    tr = _knob_trainer(args + ["--max-steps", str(KNOB_STEPS)], knobs)
     out = tr.train()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
@@ -4051,20 +4083,25 @@ MESH_GO_S = 900
 
 def mesh_child(rank: int, port: int, ref_dir: str) -> None:
     """``--mesh-child RANK PORT DIR``: one rank of phase ``mesh``
-    (``_mesh_dense_rank``), kept for phase ``mesh_moe`` (the four
-    processes start once for both phases): once the parent has written
-    that phase's references and ``DIR/go``, the rank runs
-    ``_mesh_moe_rank``; ``DIR/stop``, or MESH_GO_S seconds, ends it."""
+    (``_mesh_dense_rank``), kept for phases ``mesh_moe`` and ``mesh_ssm``
+    (the four processes start once for the three): once the parent has
+    written a phase's references and its go file (``DIR/go``, then
+    ``DIR/go_ssm``), the rank runs its part (``_mesh_moe_rank``,
+    ``_mesh_ssm_rank``); ``DIR/stop``, or MESH_GO_S seconds without
+    one, ends it."""
     import torch.distributed as dist
     mesh = _join_mesh(rank, port)
     emit(_mesh_dense_rank(rank, mesh, ref_dir))
-    torch.cuda.empty_cache()
-    d, t0 = Path(ref_dir), time.perf_counter()
-    while not ((d / "go").exists() or (d / "stop").exists()
-               or time.perf_counter() - t0 > MESH_GO_S):
-        time.sleep(0.1)
-    if (d / "go").exists():
-        emit(_mesh_moe_rank(rank, mesh, ref_dir))
+    d = Path(ref_dir)
+    for go, part in (("go", _mesh_moe_rank), ("go_ssm", _mesh_ssm_rank)):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        while not ((d / go).exists() or (d / "stop").exists()
+                   or time.perf_counter() - t0 > MESH_GO_S):
+            time.sleep(0.1)
+        if not (d / go).exists():
+            break
+        emit(part(rank, mesh, ref_dir))
     dist.destroy_process_group()
 
 
@@ -4952,7 +4989,8 @@ def _held_to_trace(what: str, meas: dict, p: dict, launches: dict) -> None:
                              f"expected {launches}")
 
 
-def phase_mesh_moe(ranks: Optional["MeshRanks"] = None) -> dict:
+def phase_mesh_moe(ranks: Optional["MeshRanks"] = None,
+                   keep: Optional[dict] = None) -> dict:
     """The MoE family sharded over a (2, 2) ("data", "model") mesh of four
     processes on the one card (gloo, staged through pinned host buffers;
     ``ranks``: phase ``mesh``'s, waiting for this work, else its own).
@@ -4981,7 +5019,9 @@ def phase_mesh_moe(ranks: Optional["MeshRanks"] = None) -> dict:
     - the smoke ES steps as phase ``mesh`` holds the dense one.
     Each measured call against the dry run's trace of it under a fake
     group of 4, made first: FLOPs and collectives equal, the peak within
-    5 % or 256 MiB, and its launches. Returns the ranks' launches."""
+    5 % or 256 MiB, and its launches. With ``keep`` (a dict) phase
+    ``mesh``'s processes are left in ``keep["ranks"]`` for phase
+    ``mesh_ssm``. Returns the ranks' launches."""
     import shutil
     import tempfile
 
@@ -5022,9 +5062,17 @@ def phase_mesh_moe(ranks: Optional["MeshRanks"] = None) -> dict:
             (ref_dir / "go").touch()
         got = ranks.wait_for("mesh_moe_child")
         ranks_s = time.perf_counter() - t1
-    finally:
+    except BaseException:
         if ranks is not None:
             ranks.close()
+        shutil.rmtree(ref_dir, ignore_errors=True)
+        raise
+    for name in (*full, *smoke):
+        (ref_dir / f"{name}.pt").unlink()
+    if keep is not None and (ref_dir / "go").exists():
+        keep["ranks"] = ranks    # phase mesh's: they wait for mesh_ssm
+    else:
+        ranks.close()
         shutil.rmtree(ref_dir, ignore_errors=True)
     bounds = {name: [max(MODEL_TOL, SDPA_SLACK * rel)
                      for _, rel in ones[name]["sdpa_gap"]] for name in full}
@@ -5103,6 +5151,409 @@ def phase_mesh_moe(ranks: Optional["MeshRanks"] = None) -> dict:
                 "gqa_flash_attention": base.num_layers, "xent_partials": 1,
                 "xent_combine": 1, "fused_score_update": 1})
             add(t)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase mesh_ssm: the SSM and hybrid families over a (2, 2) mesh, and the
+# checkpoint of a model-sharded state
+# ---------------------------------------------------------------------------
+
+# (arch, depth cut) at published widths: mamba2-780m 48 -> 2 Mamba2 layers;
+# zamba2-2.7b 9 sites of 6 -> 1 site of 2 Mamba2 layers and the shared
+# block; both keep fsdp_params (their own True)
+SSM_CUTS = {"mamba2": ("mamba2-780m", {"num_layers": 2}),
+            "zamba2": ("zamba2-2.7b", {"num_layers": 2,
+                                       "hybrid_attn_every": 2})}
+# the Mamba2 leaves whole on every rank (``models/ssm.py:REPLICATED``)
+SSM_REPLICATED = ("w_bc", "w_dt", "conv_bc", "dt_bias", "A_log", "D")
+
+
+def ssm_cfgs() -> dict:
+    import dataclasses
+    from repro_torch.configs import get_config
+    return {name: dataclasses.replace(get_config(arch), **cut)
+            for name, (arch, cut) in SSM_CUTS.items()}
+
+
+def ssm_cells() -> dict:
+    """kind -> ShapeConfig: the ES step at S1's traffic, SV's prefill and
+    a decode step on its cache of 512 + 4."""
+    from repro_torch.configs.base import ShapeConfig
+    return {"train": ShapeConfig("s1", 512, 32, "train"),
+            "prefill": ShapeConfig("sv_prefill", SERVE_P, SERVE_B,
+                                   "prefill"),
+            "decode": ShapeConfig("sv_decode", SERVE_P + TEACHER_STEPS,
+                                  SERVE_B, "decode")}
+
+
+def _ssm_one_process(cfg) -> dict:
+    """The parent's one-process runs of a cut model on the card: the bf16
+    ES step (kernels) at S1's traffic with its scoring losses, selected
+    rows and moments, and the float32 per-sample losses of the same
+    weights and batch (the plain forward, before the step); the bf16
+    prefill and four decode steps fed its own argmax (flash in the
+    prefill, as the ranks), and the same in float32 (flash's plain
+    version) fed the same tokens."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import (init_lm, lm_per_sample_loss,
+                                                tree_map)
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.model import init_cache
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    prep = dryrun.prepare(cfg, ssm_cells()["train"], dryrun.VARIANTS["es"],
+                          "cuda", minibatch=MESH_MB)
+    params, opt, batch = prep.args[0], prep.args[1], prep.args[-1]
+    with torch.no_grad():
+        losses = lm_per_sample_loss(cfg, params, batch, scoring=True)[0]
+        losses_f32 = lm_per_sample_loss(f32, params, batch)[0]
+    metrics = prep.step()[1]
+    one = {"losses": losses.float().cpu(), "losses_f32": losses_f32.cpu(),
+           "selected": metrics["selected"].cpu(),
+           "m": tree_map(lambda t: t.float().cpu(), opt.m),
+           "v": tree_map(lambda t: t.float().cpu(), opt.v)}
+    del prep, params, opt, batch, metrics
+    torch.cuda.empty_cache()
+    params = init_lm(cfg, _gen(dryrun.SEED), "cuda")
+    prompts = dryrun.make_batch(cfg, SERVE_B, SERVE_P, "cuda",
+                                _gen(dryrun.SEED + 1), train=False)["tokens"]
+    with torch.no_grad():
+        cache = init_cache(cfg, SERVE_B, SERVE_P + TEACHER_STEPS,
+                           device="cuda")
+        bf16, fed, _ = _serve_teacher(cfg, params, prompts, cache,
+                                      ShardCtx(), None)
+        fed = torch.stack(fed).cpu()
+        cache = init_cache(f32, SERVE_B, SERVE_P + TEACHER_STEPS,
+                           dtype=torch.float32, device="cuda")
+        f32_seq, _, _ = _serve_teacher(f32, params, prompts, cache,
+                                       ShardCtx(), fed,
+                                       attention=plain_attention)
+    one.update(prompts=prompts.cpu(), tokens=fed,
+               logits=torch.stack(bf16).float().cpu(),
+               logits_f32=torch.stack(f32_seq).cpu())
+    del params, cache, bf16, f32_seq
+    torch.cuda.empty_cache()
+    return one
+
+
+def _rel_l2(got: dict, want: dict, axes: dict, ctx) -> float:
+    """The relative L2 distance of a rank's tree of moments to the
+    one-process tree cut to its shards."""
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.models.transformer import tree_leaves
+    num = den = 0.0
+    for a, w in zip(tree_leaves(got),
+                    tree_leaves(shard_tree(want, axes, ctx))):
+        num += (a.cpu().float() - w).square().sum().item()
+        den += w.square().sum().item()
+    return (num / den) ** 0.5
+
+
+def _f32_errs(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |err| / max(1, |want|) of two float32 tensors."""
+    return logit_errs(got.float().cpu(), want)[1]
+
+
+def _ckpt_round_trip(eng, st, ckpt_dir: Path) -> dict:
+    """The rank's ES state saved with its layout from the four ranks
+    (each split leaf gathered whole, process 0 writes), restored onto the
+    same ranks (bitwise the rank's tree) and onto one process on the card
+    (each rank's own restore with no layout: its shard of every whole
+    leaf bitwise the rank's own); a save without the layout refused ->
+    {"refused", "same_grid", "one_process", seconds}."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.checkpointer import flatten
+    tree = eng.state_dict(st)
+    layout = eng.checkpoint_layout()
+    ck = Checkpointer(ckpt_dir)
+    out = {}
+    try:
+        ck.save(tree, 1)
+        out["refused"] = None
+    except ValueError as e:
+        out["refused"] = str(e)
+    t0 = time.perf_counter()
+    ck.save(tree, 1, layout=layout)
+    dist.barrier()
+    out["save_s"] = time.perf_counter() - t0
+    flat, split, ctx = flatten(tree), layout.split, layout.ctx
+    t0 = time.perf_counter()
+    back = flatten(ck.restore(tree, 1, layout=layout))
+    out["restore_s"] = time.perf_counter() - t0
+    out["same_grid"] = [k for k, v in flat.items()
+                        if not torch.equal(back[k], v)]
+    del back
+    # one process: a template of whole leaves, no layout
+    template = {k: torch.empty(
+        [n * ctx.size(a) for n, a in zip(v.shape, split[k])]
+        if k in split else v.shape, dtype=v.dtype, device=v.device)
+        for k, v in flat.items()}
+    t0 = time.perf_counter()
+    one = flatten(ck.restore(template, 1))
+    out["restore_one_s"] = time.perf_counter() - t0
+    del template
+    out["one_process"] = [k for k, v in flat.items()
+                          if not torch.equal(layout.shard(k, one[k]), v)]
+    del one
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_ssm_model(cfg, mesh, one: dict, wrappers: dict,
+                    ckpt_dir: Path) -> dict:
+    """A rank's calls of a cut model on its shards of the one-process
+    run's weights and rows of its batch: the bf16 ES step (measured) held
+    as phase ``mesh`` holds the dense step, and its float32 per-sample
+    losses; the replicated Mamba2 leaves against the "model" peer's; the
+    checkpoint round trip; the bf16 prefill and four decode steps
+    (measured: the prefill and the first step) and their float32 reruns
+    (flash's plain version), fed the one-process run's tokens."""
+    import dataclasses
+
+    from repro_torch.distributed.sharding import make_ctx, shard_tree
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import init_cache
+    from repro_torch.models.transformer import (init_lm, lm_per_sample_loss,
+                                                param_axes, tree_leaves,
+                                                tree_map)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    axes = param_axes(cfg)
+
+    def shards(ctx):
+        full = init_lm(cfg, _gen(dryrun.SEED), "cuda")    # prepare's draws
+        local = tree_map(lambda t: t.contiguous().clone(),
+                         shard_tree(full, axes, ctx))
+        del full
+        torch.cuda.empty_cache()
+        return local
+
+    shape = ssm_cells()["train"]
+    ctx = make_ctx(cfg, mesh, "train")
+    lo, n = ctx.local("batch", shape.global_batch)
+    batch = {k: v[lo:lo + n].clone() for k, v in dryrun.make_batch(
+        cfg, shape.global_batch, shape.seq_len, "cuda",
+        _gen(dryrun.SEED)).items()}
+    prep = dryrun.prepare(cfg, shape, dryrun.VARIANTS["es"], "cuda",
+                          minibatch=MESH_MB, mesh=mesh, params=shards(ctx),
+                          batch=batch)
+    eng, params, opt = prep.engine, prep.args[0], prep.args[1]
+    with torch.no_grad():      # float32 losses, then the bf16 (a warm-up)
+        l32 = ctx.all_gather(lm_per_sample_loss(f32, params, batch,
+                                                ctx=ctx)[0], "batch", 0)
+        losses = ctx.all_gather(lm_per_sample_loss(
+            cfg, params, batch, scoring=True, ctx=ctx)[0], "batch", 0)
+    res = {"train": {"loss_err": (losses.float().cpu()
+                                  - one["losses"]).abs().max().item(),
+                     "loss_err_f32": _f32_errs(l32, one["losses_f32"])}}
+    train = res["train"]
+    p0 = [t.float().cpu() for t in tree_leaves(params)]
+    with mesh_counted(wrappers, train):
+        state, metrics = prep.step()
+    train["selected_equal"] = bool(torch.equal(metrics["selected"].cpu(),
+                                               one["selected"]))
+    train["m_rel_l2"] = _rel_l2(opt.m, one["m"], axes, ctx)
+    train["v_rel_l2"] = _rel_l2(opt.v, one["v"], axes, ctx)
+    train["update_err"] = max(
+        (p1.cpu() - w).abs().max().item() for p1, w in zip(
+            tree_leaves(params), adamw_first_step(
+                p0, [t.cpu() for t in tree_leaves(opt.m)],
+                [t.cpu() for t in tree_leaves(opt.v)],
+                float(metrics["lr_scale"]))))
+    res["replicas_differ"] = []
+    for name, t in _named_leaves(params):
+        if name.split("/")[-1] in SSM_REPLICATED:
+            both = ctx.all_gather(t.contiguous()[None], "mlp", 0)
+            if not torch.equal(both[0], both[1]):
+                res["replicas_differ"].append(name)
+    del p0, batch, losses, l32, metrics
+    res["ckpt"] = _ckpt_round_trip(eng, state, ckpt_dir)
+    del prep, eng, state, params, opt
+    torch.cuda.empty_cache()
+
+    dctx = make_ctx(cfg, mesh, "decode")
+    params = shards(dctx)
+    lo, n = dctx.local("batch", SERVE_B)
+    prompts = one["prompts"][lo:lo + n].cuda()
+    tokens = one["tokens"][:, lo:lo + n]
+    res["prefill"], res["decode"] = {}, {}
+    with torch.no_grad():
+        cache = init_cache(cfg, SERVE_B, SERVE_P + TEACHER_STEPS,
+                           device="cuda", ctx=dctx)
+        res["cache_shapes"] = {k: list(v.shape)
+                               for k, v in _named_leaves(cache)}
+        _, _, res["logit_errs"] = _serve_teacher(
+            cfg, params, prompts, cache, dctx, tokens,
+            one["logits"][:, lo:lo + n],
+            counted=(wrappers, [res["prefill"], res["decode"]]))
+        del cache
+        cache = init_cache(f32, SERVE_B, SERVE_P + TEACHER_STEPS,
+                           dtype=torch.float32, device="cuda", ctx=dctx)
+        _, _, res["logit_errs_f32"] = _serve_teacher(
+            f32, params, prompts, cache, dctx, tokens,
+            one["logits_f32"][:, lo:lo + n], attention=plain_attention)
+    del params, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def _named_leaves(tree, prefix: str = ""):
+    """(``/``-joined path, leaf) of each leaf of a nested dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def _mesh_ssm_rank(rank: int, mesh, ref_dir: str) -> dict:
+    """One rank of phase ``mesh_ssm``: each cut model of ``ssm_cfgs``
+    against the parent's one-process run (``DIR/<name>.pt``)."""
+    wrappers = {**_wrappers(), **_xent_halves()}
+    res = {"mesh_ssm_child": rank, "coordinate": mesh.get_coordinate()}
+    for name, cfg in ssm_cfgs().items():
+        one = torch.load(Path(ref_dir) / f"{name}.pt", mmap=True)
+        res[name] = _mesh_ssm_model(cfg, mesh, one, wrappers,
+                                    Path(ref_dir) / f"ckpt_{name}")
+    return res
+
+
+def mesh_ssm_child(rank: int, port: int, ref_dir: str) -> None:
+    """``--mesh-ssm-child RANK PORT DIR``: phase ``mesh_ssm``'s ranks on
+    their own (when phase ``mesh`` has not started them)."""
+    import torch.distributed as dist
+    mesh = _join_mesh(rank, port)
+    emit(_mesh_ssm_rank(rank, mesh, ref_dir))
+    dist.destroy_process_group()
+
+
+def phase_mesh_ssm(ranks: Optional["MeshRanks"] = None) -> dict:
+    """The SSM and hybrid families sharded over a (2, 2) ("data",
+    "model") mesh of four processes on the one card (gloo; ``ranks``:
+    phase ``mesh``'s, waiting for this work, else its own):
+    mamba2-780m and zamba2-2.7b at published widths, depth cut
+    (``SSM_CUTS``), FSDP on; the ES step at S1's traffic, SV's prefill and
+    four decode steps. Each rank is held to this process's one-process
+    run: the bf16 ES step as phase ``mesh`` holds the dense one (selected
+    rows equal, scoring losses within MODEL_TOL, moments within
+    ``MESH_M_TOL`` / ``MESH_V_TOL``, weights AdamW's step by them); the
+    float32 per-sample losses and the float32 prefill's and decode steps'
+    logits within ``MESH_F32_TOL`` x max(1, |x|); the bf16 ones within
+    MODEL_TOL (the gap reported); the replicated Mamba2 leaves bitwise
+    equal over "model" after the step; the state saved from the four ranks
+    and restored onto them and onto one process, bitwise
+    (``_ckpt_round_trip``). Each measured
+    call (the ES step, the prefill, the first decode step) against the dry
+    run's trace of it under a fake group of 4: FLOPs and collectives
+    equal, the peak within 5 % or 256 MiB, its launches. Returns the
+    ranks' launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import mesh_info
+    t0 = time.perf_counter()
+    cfgs, cells = ssm_cfgs(), ssm_cells()
+    pred = {}
+    with dryrun.fake_mesh(MESH_SHAPE, MESH_NAMES) as m:
+        info = mesh_info(m)
+        for name, cfg in cfgs.items():
+            pred[name] = {kind: dryrun.count(dryrun.prepare(
+                cfg, shape, dryrun.VARIANTS["es"],
+                minibatch=MESH_MB if kind == "train" else None, mesh=m),
+                info) for kind, shape in cells.items()}
+    trace_s = time.perf_counter() - t0
+    ref_dir = ranks.dir if ranks is not None else Path(tempfile.mkdtemp())
+    try:
+        t1 = time.perf_counter()
+        for name, cfg in cfgs.items():
+            torch.save(_ssm_one_process(cfg), ref_dir / f"{name}.pt")
+        one_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        if ranks is None:
+            ranks = MeshRanks("--mesh-ssm-child", ref_dir)
+        else:
+            (ref_dir / "go_ssm").touch()
+        got = ranks.wait_for("mesh_ssm_child")
+        ranks_s = time.perf_counter() - t1
+    finally:
+        if ranks is not None:
+            ranks.close()
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    emit({"phase": "mesh_ssm", "mesh": list(MESH_SHAPE), "trace_s": trace_s,
+          "one_process_s": one_s, "ranks_s": ranks_s,
+          "cuts": {n: list(c) for n, c in SSM_CUTS.items()},
+          "bounds": {"loss": MODEL_TOL, "logits_bf16": MODEL_TOL,
+                     "f32": f"{MESH_F32_TOL} x max(1, |x|)",
+                     "m_rel_l2": MESH_M_TOL, "v_rel_l2": MESH_V_TOL,
+                     "update": MESH_UPDATE_TOL, "peak": list(PEAK_SLACK)},
+          "predicted": {n: {k: {f: v[f] for f in (
+              "flops", "flops_by_dtype", "collectives",
+              "collective_bytes_total", "memory", "roofline")}
+              for k, v in p.items()} for n, p in pred.items()},
+          "ranks": got, "card": smi_line()})
+    launches = {"gqa_flash_attention": 0, "fused_xent": 0,
+                "fused_score_update": 0}
+    for r, g in enumerate(got):
+        for name, cfg in cfgs.items():
+            res, where = g[name], f"mesh_ssm: rank {r} {name}"
+            t = res["train"]
+            if not t["selected_equal"]:
+                raise AssertionError(f"{where} selected other rows")
+            if t["loss_err"] > MODEL_TOL:
+                raise AssertionError(f"{where} scoring losses off by "
+                                     f"{t['loss_err']}")
+            if t["loss_err_f32"] > MESH_F32_TOL:
+                raise AssertionError(f"{where} float32 losses off by "
+                                     f"{t['loss_err_f32']}")
+            if t["m_rel_l2"] > MESH_M_TOL or t["v_rel_l2"] > MESH_V_TOL:
+                raise AssertionError(f"{where} moments off: m by "
+                                     f"{t['m_rel_l2']}, v by "
+                                     f"{t['v_rel_l2']}")
+            if not t["update_err"] <= MESH_UPDATE_TOL:
+                raise AssertionError(f"{where} weights off AdamW's step by "
+                                     f"{t['update_err']}")
+            if res["replicas_differ"]:
+                raise AssertionError(f"{where} replicated leaves differ "
+                                     f"over 'model': "
+                                     f"{res['replicas_differ']}")
+            ck = res["ckpt"]
+            if not (ck["refused"] and "layout" in ck["refused"]):
+                raise AssertionError(f"{where} a save without the layout "
+                                     f"was not refused")
+            if ck["same_grid"] or ck["one_process"]:
+                raise AssertionError(f"{where} restores differ: "
+                                     f"{ck['same_grid']}, "
+                                     f"{ck['one_process']}")
+            for i, (_, rel) in enumerate(res["logit_errs"]):
+                if rel > MODEL_TOL:
+                    raise AssertionError(f"{where} bf16 logits of step {i} "
+                                         f"off by {rel}")
+            if len(res["logit_errs_f32"]) != TEACHER_STEPS + 1:
+                raise AssertionError(f"{where} float32 logits unchecked")
+            for e, rel in res["logit_errs_f32"]:
+                if rel > MESH_F32_TOL:
+                    raise AssertionError(f"{where} float32 logits off by "
+                                         f"{e} ({rel} relative)")
+            sites = (cfg.num_layers // cfg.hybrid_attn_every
+                     if cfg.family == "hybrid" else 0)
+            flash = {"gqa_flash_attention": sites} if sites else {}
+            want = {"train": {**flash, "xent_partials": 1,
+                              "xent_combine": 1, "fused_score_update": 1},
+                    "prefill": flash, "decode": {}}
+            for kind in ("train", "prefill", "decode"):
+                meas = t if kind == "train" else res[kind]
+                _held_to_trace(f"{where} {kind}", meas, pred[name][kind],
+                               want[kind])
+                launches["gqa_flash_attention"] += meas["launches"].get(
+                    "gqa_flash_attention", 0)
+                launches["fused_xent"] += meas["launches"].get(
+                    "xent_partials", 0)
+                launches["fused_score_update"] += meas["launches"].get(
+                    "fused_score_update", 0)
     return launches
 
 
@@ -5386,6 +5837,9 @@ def main() -> None:
     if len(sys.argv) == 5 and sys.argv[1] == "--mesh-moe-child":
         mesh_moe_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return
+    if len(sys.argv) == 5 and sys.argv[1] == "--mesh-ssm-child":
+        mesh_ssm_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
     if len(sys.argv) > 1:
         sys.exit("usage: chip_smoke.py [--store-bench SRC | --segsum-bench "
                  "SRC | --steps-bench SRC]")
@@ -5414,9 +5868,11 @@ def main() -> None:
             **{p: lambda p=p: phase_engine(p) for p in ENGINE_PATHS},
             "serve_vlm": phase_serve_vlm,
             "serve_encdec": phase_serve_encdec, "dryrun": phase_dryrun,
-            # phase mesh's four processes go on to phase mesh_moe's work
+            # phase mesh's four processes go on to phase mesh_moe's work,
+            # then to mesh_ssm's
             "mesh": lambda: phase_mesh(kept),
-            "mesh_moe": lambda: phase_mesh_moe(kept.pop("ranks"))}
+            "mesh_moe": lambda: phase_mesh_moe(kept.pop("ranks"), kept),
+            "mesh_ssm": lambda: phase_mesh_ssm(kept.pop("ranks"))}
     for name, run in runs.items():
         for k, v in timed(name, run).items():
             launches[k] = launches.get(k, 0) + v

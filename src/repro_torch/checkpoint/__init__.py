@@ -1,4 +1,4 @@
 """Checkpoints of the trainer's state (counterpart of ``repro/checkpoint``)."""
-from .checkpointer import Checkpointer
+from .checkpointer import Checkpointer, Layout, ShardTree
 
-__all__ = ["Checkpointer"]
+__all__ = ["Checkpointer", "Layout", "ShardTree"]

@@ -44,9 +44,31 @@ its blocks, and, under a ``partition``, slices it to the template's row
 range. So a checkpoint of any process count restores on any other,
 replicated or in row blocks. The directory must be one every process
 reads.
+
+A model-sharded state (``ESEngine(ctx=...)`` on a mesh; the reference's
+``_to_host``, ``_sharding_desc`` and ``restore``, :61-110, :410-416)
+holds each rank's shards of the parameters and moments. Its ``Layout``
+(``ESEngine.checkpoint_layout()``: each leaf's logical axes and the
+``ShardCtx``) is passed as ``layout=``:
+
+* ``save`` gathers each split leaf whole, one leaf at a time (all-gather
+  over its mesh dims, a host copy, the gathered tensor freed: the whole
+  state never sits on one device), and process 0 writes it under its
+  global name; the manifest records each leaf's axes and the mesh's
+  shape (provenance only);
+* ``restore`` slices each whole leaf to this rank's shard by the
+  template's layout (``ShardCtx.local``), or, with no layout (one
+  process), takes it whole. The same grid, another grid and one process
+  all restore through this one path.
+
+``ESEngine.state_dict`` on a mesh returns a ``ShardTree``, a dict that
+says it holds shards: ``save`` refuses it without a layout, naming its
+first split leaf, rather than write process 0's shards as the state.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -84,6 +106,53 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[name] = leaf
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Which leaves of a state tree are a rank's shards: ``axes`` (nested
+    as the state; a leaf it does not name is whole on every rank) gives
+    each split leaf's logical axes, ``ctx`` the ``ShardCtx`` that maps
+    them onto the mesh."""
+    axes: Dict[str, Any]
+    ctx: Any
+
+    @functools.cached_property
+    def split(self) -> Dict[str, tuple]:
+        """{leaf path: logical axes} of the leaves split over the mesh."""
+        return {k: a for k, a in flatten(self.axes).items()
+                if a and any(self.ctx.size(x) > 1 for x in a)}
+
+    def gather(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole leaf ``path`` from this rank's shard ``t`` (every rank
+        calls: an all-gather a split dimension)."""
+        for dim, a in enumerate(self.split.get(path, ())):
+            if self.ctx.size(a) > 1:
+                t = self.ctx.all_gather(t.contiguous(), a, dim)
+        return t
+
+    def shard(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the whole leaf ``path``."""
+        for dim, a in enumerate(self.split.get(path, ())):
+            lo, n = self.ctx.local(a, t.shape[dim])
+            t = t.narrow(dim, lo, n)
+        return t
+
+    def describe(self) -> Dict[str, Any]:
+        """The manifest's record: the mesh and each split leaf's axes."""
+        mesh = self.ctx.mesh
+        return {"mesh": {"axis_names": list(mesh.mesh_dim_names),
+                         "shape": list(mesh.mesh.shape)},
+                "axes": {k: list(a) for k, a in self.split.items()}}
+
+
+class ShardTree(dict):
+    """A state tree that holds this rank's shards of the leaves
+    ``layout`` names (``ESEngine.state_dict`` on a mesh)."""
+
+    def __init__(self, tree: Dict, layout: Layout):
+        super().__init__(tree)
+        self.layout = layout
 
 
 def _dtype_name(t: torch.Tensor) -> str:
@@ -134,6 +203,15 @@ def _writer_only() -> bool:
     return comm is None or comm.process_index == 0
 
 
+def _with_layout(metadata: Optional[Dict], layout: Optional[Layout]
+                 ) -> Dict:
+    """The caller's metadata, with a layout's record under "layout"."""
+    md = dict(metadata or {})
+    if layout is not None:
+        md["layout"] = layout.describe()
+    return md
+
+
 def _descriptors(host: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
     return {k: {"shape": list(v.shape), "dtype": _dtype_name(v)}
             for k, v in host.items()}
@@ -171,15 +249,32 @@ class Checkpointer:
 
     # ------------------------------------------------------------------
     def _snapshot(self, state: Any, extras: Optional[Dict[str, np.ndarray]],
-                  is_async: bool, partition: Optional[Dict] = None
+                  is_async: bool, partition: Optional[Dict] = None,
+                  layout: Optional[Layout] = None
                   ) -> Dict[str, torch.Tensor]:
-        """Host copies of every leaf (process-owned ones block-keyed) and
-        extra, taken now."""
+        """Host copies of every leaf (process-owned ones block-keyed, a
+        layout's split leaves gathered whole) and extra, taken now. A
+        process that writes no whole leaf (not process 0) keeps only its
+        blocks."""
         t0 = time.perf_counter()
+        if layout is None and isinstance(state, ShardTree) \
+                and state.layout.split:
+            first, axes = next(iter(state.layout.split.items()))
+            raise ValueError(
+                f"save: {first} is this rank's shard of a model-sharded "
+                f"state (axes {axes}); pass layout= "
+                f"(ESEngine.checkpoint_layout()) to save it whole")
         flat = _split_partitioned(flatten(state), partition)
         for dev in {t.device for t in flat.values() if t.is_cuda}:
             torch.cuda.synchronize(dev)  # every stream of the device
-        host = {k: t.detach().to("cpu", copy=True) for k, t in flat.items()}
+        writer = _writer_only()
+        host = {}
+        for k, t in flat.items():
+            if layout is not None:   # every rank gathers; the copy is freed
+                t = layout.gather(k, t.detach())
+            if writer or _BLOCK in k:
+                host[k] = t.detach().to("cpu", copy=True)
+            del t
         for k, v in (extras or {}).items():
             host[_EXTRA + k] = torch.from_numpy(np.array(v))
         self.timings.append({"op": "snapshot", "async": is_async,
@@ -189,35 +284,39 @@ class Checkpointer:
     def save(self, state: Any, step: int,
              metadata: Optional[Dict] = None,
              extras: Optional[Dict[str, np.ndarray]] = None,
-             partition: Optional[Dict] = None) -> Path:
+             partition: Optional[Dict] = None,
+             layout: Optional[Layout] = None) -> Path:
         """Write ``state`` (nested dicts of tensors) as ``step`` now;
         ``partition`` marks the leaves that cover only this process's
-        rows (every process then takes part in the write)."""
+        rows (every process then takes part in the write), ``layout`` the
+        leaves that are this rank's shards of a model-sharded state (every
+        rank takes part in their gathers)."""
         self.wait()         # after any save still in flight
-        host = self._snapshot(state, extras, False, partition)
+        host = self._snapshot(state, extras, False, partition, layout)
+        md = _with_layout(metadata, layout)
         comm = (partition or {}).get("comm")
         if comm is not None:
-            return self._write_cluster(host, step, dict(metadata or {}),
-                                       partition, comm)
+            return self._write_cluster(host, step, md, partition, comm)
         if not _writer_only():
             return self.step_dir(step)     # process 0 writes for the run
-        return self._write(host, step, dict(metadata or {}))
+        return self._write(host, step, md)
 
     def save_async(self, state: Any, step: int,
                    metadata: Optional[Dict] = None,
                    extras: Optional[Dict[str, np.ndarray]] = None,
-                   partition: Optional[Dict] = None) -> None:
-        """Snapshot ``state`` now; write it on a thread (``wait`` joins).
-        A cluster write stays on the caller's thread: its barriers must
-        keep the collectives' order."""
+                   partition: Optional[Dict] = None,
+                   layout: Optional[Layout] = None) -> None:
+        """Snapshot ``state`` now (a layout's gathers included); write it on
+        a thread (``wait`` joins). A cluster write stays on the caller's
+        thread: its barriers must keep the collectives' order."""
         if (partition or {}).get("comm") is not None:
-            self.save(state, step, metadata, extras, partition)
+            self.save(state, step, metadata, extras, partition, layout)
             return
         self.wait()
-        host = self._snapshot(state, extras, True, partition)
+        host = self._snapshot(state, extras, True, partition, layout)
         if not _writer_only():
             return
-        md = dict(metadata or {})
+        md = _with_layout(metadata, layout)
 
         def work():
             try:
@@ -331,7 +430,8 @@ class Checkpointer:
         return data
 
     def restore(self, template: Dict, step: Optional[int] = None,
-                partition: Optional[Dict] = None) -> Dict:
+                partition: Optional[Dict] = None,
+                layout: Optional[Layout] = None) -> Dict:
         """``template`` (nested dicts of tensors) with each leaf loaded
         from ``step`` (default: the latest), cast to the leaf's dtype and
         device; leaves the checkpoint lacks keep their template value.
@@ -339,7 +439,9 @@ class Checkpointer:
         A leaf saved as row blocks is assembled whole; under a
         ``partition`` (this run's per-process rows) a leaf of its prefixes
         is sliced to the template's row range, so any process count
-        restores any other."""
+        restores any other. Under a ``layout`` (the template's: a
+        model-sharded state) each split leaf is sliced to this rank's
+        shard; with none, every leaf is taken whole."""
         t0 = time.perf_counter()
         step = self._step(step)
         data = self._load_all(step)
@@ -349,6 +451,8 @@ class Checkpointer:
             arr = data.get(key)
             if arr is None:
                 arr = _assemble_blocks(data, key)
+            if arr is not None and layout is not None:
+                arr = layout.shard(key, arr)
             if arr is not None and prefixes and key.startswith(prefixes) \
                     and arr.shape[:1] != leaf.shape[:1]:
                 o = _block_offset(partition, leaf)

@@ -45,16 +45,19 @@ mutates in place: parameters and optimizer moments in the optimizer, the
 score state in the store kernel. Steps return the state for symmetry with
 the reference.
 
-On a mesh (``ctx``, the reference's ``ShardCtx``: dense and MoE models)
-each rank holds its shards of the state and its rows of every batch (over
-the data axes). The scoring forward's losses and the sample ids are all-gathered,
-so every rank updates its copy of the replicated store with the same B
-ids and draws the same Gumbel top-k (the same generator seed); the
-selected rows are taken from the all-gathered batch, b / dp a rank. The
-training loss is the rank's share of the mini-batch mean; the gradients
-of leaves replicated over the data axes are all-reduced over them, those
-FSDP splits were reduce-scattered by their gathers' backward. Packed
-steps are not sharded (nor are the reference's).
+On a mesh (``ctx``, the reference's ``ShardCtx``: dense, MoE, SSM and
+hybrid models) each rank holds its shards of the state and its rows of
+every batch (over the data axes). The scoring forward's losses and the
+sample ids are all-gathered, so every rank updates its copy of the
+replicated store with the same B ids and draws the same Gumbel top-k (the
+same generator seed); the selected rows are taken from the all-gathered
+batch, b / dp a rank. The training loss is the rank's share of the
+mini-batch mean; the gradients of leaves replicated over the data axes are
+all-reduced over them, those FSDP splits were reduce-scattered by their
+gathers' backward. Packed steps are not sharded (nor are the reference's).
+A checkpoint of the state passes ``checkpoint_layout()`` to the
+checkpointer, which saves each split leaf whole and restores it onto any
+grid or one process.
 """
 from __future__ import annotations
 
@@ -63,6 +66,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..checkpoint.checkpointer import Layout, ShardTree
 from ..configs.base import ModelConfig
 from ..distributed.compression import ErrorFeedbackState, compress_decompress
 from ..models.layers import ShardCtx
@@ -718,7 +722,9 @@ class ESEngine:
         ``pending_w``, the cadence (a pending servo settled first: it is
         what the next step would read), the selection generator's state
         (a CUDA generator's is its seed and offset; re-seeding it would
-        draw other noise) and, with gradient compression, ``grad_err``."""
+        draw other noise) and, with gradient compression, ``grad_err``.
+        On a mesh a ``ShardTree`` (its parameters and moments are this
+        rank's shards; ``checkpoint_layout``)."""
         state.cadence = self._settle(state.cadence)
         cad, opt = state.cadence, state.opt
         dev = state.pending_w.device
@@ -739,7 +745,20 @@ class ESEngine:
             tree["opt"]["v"] = opt.v
         if state.grad_err is not None:
             tree["grad_err"] = state.grad_err
-        return tree
+        layout = self.checkpoint_layout()
+        return tree if layout is None else ShardTree(tree, layout)
+
+    def checkpoint_layout(self) -> Optional[Layout]:
+        """Which leaves of ``state_dict`` are this rank's shards (the
+        parameters, both AdamW moments and ``grad_err`` take
+        ``param_axes``; the store's leaves, whole on every rank, keep
+        their partition) -> the checkpointer's ``layout``; None with no
+        mesh."""
+        if self.ctx.mesh is None:
+            return None
+        pa = self._axes
+        return Layout({"params": pa, "opt": {"m": pa, "v": pa},
+                       "grad_err": pa}, self.ctx)
 
     def load_state_dict(self, state: TrainState, tree: Dict) -> TrainState:
         """The ``TrainState`` that ``state_dict`` saved as ``tree`` (leaves

@@ -203,11 +203,13 @@ def make_batch(cfg: ModelConfig, B: int, S: int, device,
 @dataclasses.dataclass
 class Prepared:
     """A cell ready to run: ``step()`` runs it once; ``args`` are the
-    tensors it reads and writes (the argument bytes)."""
+    tensors it reads and writes (the argument bytes); a train cell's
+    ``engine`` is the ``ESEngine`` that ``step`` calls."""
     step: Callable[[], Any]
     args: Tuple
     tokens_meta: int
     tokens_bp: int
+    engine: Any = None
 
 
 def mesh_kind(shape: ShapeConfig) -> str:
@@ -256,7 +258,7 @@ def prepare(cfg: ModelConfig, shape: ShapeConfig,
         bp = B * S if variant.step == "baseline" else min(b, B) * S
         return Prepared(fn, (state.params, state.opt, state.scores,
                              state.pending_w, state.cadence, *batches),
-                        B * S, bp)
+                        B * S, bp, engine)
     if params is None:
         params = init_lm(cfg, gen, device, ctx)
     cache = init_cache(cfg, B, S, device=device, ctx=ctx)
@@ -343,9 +345,14 @@ def uneven(cfg: ModelConfig, shape: ShapeConfig, b: int, ctx
                 bad.append(f"the MoE dispatch of {T} tokens: {e}")
     # whole heads a rank: the projections' H x hd columns may split evenly
     # where the heads do not (arctic's 56 over 16; the reference's
-    # partitioner pads them to 64, which the port does not)
-    for name, n in (("heads", cfg.num_heads),
-                    ("kv_heads", cfg.num_kv_heads)):
+    # partitioner pads them to 64, which the port does not); an SSM has no
+    # attention, and a Mamba2 block's SSD heads split over "mlp"
+    heads = {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads}
+    if cfg.family == "ssm":
+        heads = {}
+    if cfg.family in ("ssm", "hybrid"):
+        heads["mlp"] = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    for name, n in heads.items():
         m = ctx.size(name)
         if n % m:
             bad.append(f"{name} {n} over "

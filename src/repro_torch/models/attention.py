@@ -40,14 +40,16 @@ On a mesh (``ShardCtx``; reference :67-69, :174) each rank runs its own
 query heads ("heads") against the KV heads they read. With "kv_heads"
 sharded too, the rank's K/V projections are its own heads; with them
 replicated (``shard_kv_heads=False``, or fewer KV heads than shards) each
-rank projects every KV head, as the reference's partitioned program
-does, and passes the kernel only the ones its query heads read
-(``_heads``). The output projection is row-parallel, its partial sums
-all-reduced. A decode cache whose sequence is split ("cache_seq", the
-decode rules with replicated KV heads) holds S_max / m positions a rank:
-only the rank that owns ``pos`` writes the new K/V, each rank attends
-every query head to its positions, and the partial softmaxes (max, sum,
-weighted values) are all-gathered and folded.
+rank projects every KV head, as the reference's partitioned program does,
+and passes the kernel only the ones its query heads read (``_heads``). The
+output projection is row-parallel, its partial sums all-reduced. A decode
+cache whose sequence is split ("cache_seq") holds S_max / m positions a
+rank, and only the rank that owns ``pos`` writes the new K/V. Under the
+decode rules with replicated KV heads the split is over "model": each rank
+attends every query head to its positions. Under the "long" rules it is
+over the data axes (one or several mesh dims, a flattened group): each rank
+attends its own heads to its positions. The partial softmaxes (max, sum,
+weighted values) are all-gathered over the split and folded.
 """
 from __future__ import annotations
 
@@ -407,11 +409,19 @@ def decode_attn(params: Params, x: torch.Tensor,
     lo = ctx.local("cache_seq", n * ctx.size("cache_seq"))[0]
     mask = causal_mask(pos, torch.arange(lo, lo + n, device=x.device))
     hl = q.shape[2]
-    if ctx.size("cache_seq") > 1:
+    split = ctx.size("cache_seq") > 1
+    if split and not set(ctx.dims("cache_seq")) & set(ctx.dims("heads")):
+        # positions over other mesh axes than the heads (the "long"
+        # rules: the data axes): this rank's heads, its positions
+        kc, vc, kr = _read_heads(ctx, n_heads, n_kv, kc, vc)
+        out = _split_seq_attn(q.reshape(B, 1, kr, hl // kr, head_dim), kc,
+                              vc, mask, ctx).reshape(B, 1, hl * head_dim)
+    elif split:
         if ctx.size("kv_heads") > 1 or \
                 ctx.dims("cache_seq") != ctx.dims("heads"):
-            raise ValueError("a sequence-split cache needs replicated KV "
-                             "heads and the heads' mesh axis")
+            raise ValueError("a sequence-split cache over the heads' mesh "
+                             "axis needs replicated KV heads and no other "
+                             "axis")
         q = ctx.all_gather(q, "heads", 2)
         out = _split_seq_attn(q.reshape(B, 1, n_kv, n_heads // n_kv,
                                         head_dim), kc, vc, mask, ctx)

@@ -292,6 +292,27 @@ def rmsnorm(x: torch.Tensor, scale: Optional[torch.Tensor],
     return y.to(dt)
 
 
+def split_rmsnorm(x: torch.Tensor, scale: Optional[torch.Tensor],
+                  ctx: ShardCtx, logical: str,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """``rmsnorm`` over a last dimension split over ``logical`` (``x`` and
+    ``scale`` are this rank's shards): the mean of squares is the sum of
+    squares all-reduced over the axis, over the global width. The sum is
+    all-reduced both ways (``enter(psum(...))``): each rank's consumers
+    of the variance are its own shard, so its gradient is partial too."""
+    m = ctx.size(logical)
+    if m == 1:
+        return rmsnorm(x, scale, eps)
+    dt = x.dtype
+    x = x.float()
+    ss = ctx.enter(ctx.psum(x.square().sum(dim=-1, keepdim=True), logical),
+                   logical)
+    y = x * torch.rsqrt(ss / (x.shape[-1] * m) + eps)
+    if scale is not None:
+        y = y * scale.float()
+    return y.to(dt)
+
+
 def layernorm(x: torch.Tensor, scale: Optional[torch.Tensor],
               bias: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
     dt = x.dtype

@@ -35,14 +35,16 @@ them, and stores them in bfloat16 as the cache's new ``cross_kv``, sized
 by this prompt's memory (the reference's prefill returns its own); each
 decode step attends to the stored K/V.
 
-On a mesh (``ctx``, the dense and MoE families; reference :87, :158,
-:319) the cache is this rank's shard of the reference's
-(``cache_axes``): its batch rows, its KV heads, or with replicated KV
-heads under the decode rules every head over S_max / m positions
-(``attention.decode_attn``). The logits are gathered over the
-vocabulary. A MoE decode step's few tokens usually make one dispatch
-group spanning the data ranks (``moe._auto_groups`` on the global
-count).
+On a mesh (``ctx``, the dense, MoE, SSM and hybrid families; reference
+:87, :158, :319) the cache is this rank's shard of each leaf of the
+reference's (``cache_axes``): its batch rows; its KV heads, or with
+replicated KV heads under the decode rules every head over S_max / m
+positions (``attention.decode_attn``); an SSM state's heads and a conv
+tail's inner channels over "mlp" (the B/C tail whole); at ``long_500k``
+(the "long" rules) every row, and the KV cache's positions over the
+data axes. The logits are gathered over the vocabulary. A MoE decode
+step's few tokens usually make one dispatch group spanning the data
+ranks (``moe._auto_groups`` on the global count).
 """
 from __future__ import annotations
 
@@ -58,10 +60,9 @@ from .layers import ShardCtx, apply_norm, embed_tokens, local_shape, \
     unembed_matrix
 from .losses import last_token_logits
 from .ssm import init_ssm_cache, mamba2_decode, mamba2_fwd, ssm_cache_axes
-from .transformer import (_layer_axes, _unstack, check_mesh, decoder_layer,
+from .transformer import (_unstack, block_axes, check_mesh, decoder_layer,
                           dtype_of, encode, ffn, final_norm,
-                          gated_cross_block, memory_of, n_sites, param_axes,
-                          shared_cfg)
+                          gated_cross_block, memory_of, n_sites, shared_cfg)
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
@@ -105,11 +106,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     a mesh this rank's shard of each (``cache_axes``)."""
     if ctx.mesh is not None:
         check_mesh(cfg, ctx)
-        hd = cfg.resolved_head_dim()
-        full = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, hd)
-        shape = local_shape(full, cache_axes(cfg)["kv"]["k"], ctx)
-        return {"kv": {n: torch.zeros(shape, dtype=dtype, device=device)
-                       for n in ("k", "v")}}
+        full = init_cache(cfg, batch, max_len, dtype, "meta")
+        return _local_zeros(full, cache_axes(cfg), ctx, device)
     hd = cfg.resolved_head_dim()
     if cfg.family in ("dense", "moe", "encdec"):
         cache = {"kv": init_kv_cache(batch, max_len, cfg.num_kv_heads, hd,
@@ -135,6 +133,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         cache["attn_kv"] = init_kv_cache(batch, max_len, cfg.num_kv_heads,
                                          hd, dtype, lead[:1], device)
     return cache
+
+
+def _local_zeros(full, axes, ctx: ShardCtx, device):
+    """Zeros of this rank's shape of each leaf of ``full`` (global shapes,
+    any device) with logical ``axes``."""
+    if isinstance(full, dict):
+        return {k: _local_zeros(v, axes[k], ctx, device)
+                for k, v in full.items()}
+    return torch.zeros(local_shape(full.shape, axes, ctx), dtype=full.dtype,
+                       device=device)
 
 
 def _attn_kwargs(cfg: ModelConfig) -> Dict:
@@ -197,16 +205,17 @@ def _run(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     check_mesh(cfg, ctx)
     x = embed_tokens(params["embed"], tokens, dtype_of(cfg.compute_dtype),
                      ctx)
-    lax = _layer_axes(param_axes(cfg)["layers"]) if ctx.mesh else None
+    lax, sax = block_axes(cfg, ctx)
 
-    def dense_block(bcfg, p, x, kv):
-        p = ctx.gather_params(p, lax)
+    def dense_block(bcfg, p, x, kv, axes):
+        p = ctx.gather_params(p, axes)
         h = apply_norm(bcfg.norm_kind, x, p.get("ln1"))
         x = x + attn(p["attn"], h, kv)[0]
         h = apply_norm(bcfg.norm_kind, x, p.get("ln2"))
         return x + ffn(bcfg, p, h, ctx)
 
     def mamba_block(p, x, sc):
+        p = ctx.gather_params(p, lax)
         h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
         y, new = mamba(p["mamba"], h, sc)
         _write(sc, new)
@@ -214,7 +223,7 @@ def _run(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
     if cfg.family in ("dense", "moe"):
         for i, p in enumerate(_unstack(params["layers"], cfg.num_layers)):
-            x = dense_block(cfg, p, x, _view(cache["kv"], i))
+            x = dense_block(cfg, p, x, _view(cache["kv"], i), lax)
     elif cfg.family == "ssm":
         for i, p in enumerate(_unstack(params["layers"], cfg.num_layers)):
             x = mamba_block(p, x, _view(cache["ssm"], i))
@@ -225,13 +234,13 @@ def _run(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             for j, p in enumerate(_unstack(site, k)):
                 x = mamba_block(p, x, _view(cache["ssm"], s, j))
             x = dense_block(scfg, params["shared"], x,
-                            _view(cache["attn_kv"], s))
+                            _view(cache["attn_kv"], s), sax)
     elif cfg.family == "vlm":
         ns, k = n_sites(cfg)
         for s, (site, cp) in enumerate(zip(_unstack(params["layers"], ns),
                                            _unstack(params["cross"], ns))):
             for j, p in enumerate(_unstack(site, k)):
-                x = dense_block(cfg, p, x, _view(cache["kv"], s, j))
+                x = dense_block(cfg, p, x, _view(cache["kv"], s, j), lax)
             x = gated_cross_block(cfg, cp, x,
                                   lambda pa, h, s=s: cross(pa, h, s))
     elif cfg.family == "encdec":
@@ -282,7 +291,8 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict[str, torch.Tensor],
         lambda p, h, c: prefill_attn(p, h, c, chunk_q=cfg.attn_chunk_q,
                                      ctx=ctx, **ak),
         lambda p, h, c: mamba2_fwd(p, h, chunk=cfg.ssm_chunk,
-                                   return_state=True, **sk), cross, ctx)
+                                   return_state=True, ctx=ctx, **sk),
+        cross, ctx)
     return logits, cache
 
 
@@ -296,7 +306,7 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     ak, sk = _attn_kwargs(cfg), _ssm_kwargs(cfg)
     logits = _run(cfg, params, tokens, cache,
                   lambda p, h, c: decode_attn(p, h, c, pos, ctx=ctx, **ak),
-                  lambda p, h, c: mamba2_decode(p, h, c, **sk),
+                  lambda p, h, c: mamba2_decode(p, h, c, ctx=ctx, **sk),
                   lambda p, h, i: _cross_attn_cached(
                       cfg, p, h, _view(cache["cross_kv"], i)), ctx)
     return logits, cache

@@ -13,6 +13,19 @@ is a sequential loop over the chunks where the reference runs
 ``jax.lax.associative_scan``: the same values in another float order.
 Padding S to a multiple of the chunk with dt = 0 is exact (decay 1, no
 input), as in the reference.
+
+On a mesh (``ctx``; the reference's constraints at :191-192, :203) the
+inner width is split over "mlp": ``w_z``, ``w_x``, ``conv_x`` and
+``norm_scale`` hold this rank's d_inner / m channels, which are its
+nh / m SSD heads. ``w_bc``, ``w_dt``, ``conv_bc``, ``dt_bias``, ``A_log``
+and ``D`` are whole on every rank; each rank runs B and C whole and
+slices dt, ``dt_bias``, ``A_log`` and ``D`` to its heads. Those
+replicated leaves, and the input, feed work each rank does only for its
+own heads (dt's product too is taken for them alone, as XLA splits it),
+so they enter through ``ShardCtx.enter`` (their gradients
+summed over "mlp"). The gated norm spans the ranks (``split_rmsnorm``),
+and ``w_out`` is row-parallel (its partial sums all-reduced). The
+depthwise convolution is per channel: no collective.
 """
 from __future__ import annotations
 
@@ -22,7 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import Init, Params, rmsnorm
+from .layers import Init, Params, ShardCtx, split_rmsnorm
 
 
 def mamba2_axes(lead: Tuple[int, ...]) -> Dict:
@@ -64,6 +77,21 @@ def init_mamba2(d_model: int, *, state: int, head_dim: int, expand: int,
         "norm_scale": init.full(lead + (d_inner,), 1.0),
         "w_out": init.normal(lead + (d_inner, d_model)),
     }
+
+
+REPLICATED = ("w_bc", "w_dt", "conv_bc", "dt_bias", "A_log", "D")
+
+
+def _local(params: Params, x: torch.Tensor, nh: int, ctx: ShardCtx
+           ) -> Tuple[Params, torch.Tensor, slice]:
+    """The block's leaves and input as this rank's heads read them: the
+    replicated leaves and x entering "mlp" (identity on one device) ->
+    (leaves, x, this rank's slice of the nh heads)."""
+    h0, hl = ctx.local("mlp", nh)
+    p = dict(params)
+    for name in REPLICATED:
+        p[name] = ctx.enter(p[name], "mlp")
+    return p, ctx.enter(x, "mlp"), slice(h0, h0 + hl)
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -167,34 +195,35 @@ def init_ssm_cache(batch: int, d_model: int, *, state: int, head_dim: int,
 
 def mamba2_fwd(params: Params, x: torch.Tensor, *, state: int,
                head_dim: int, expand: int, chunk: int,
-               return_state: bool = False):
+               return_state: bool = False, ctx: ShardCtx = ShardCtx()):
     """Full-sequence Mamba2 block: x (B, S, d) -> (B, S, d); with
     ``return_state`` also the decode cache it leaves (the final SSM state
-    and the PRE-conv tails of the conv inputs)."""
+    and the PRE-conv tails of the conv inputs; on a mesh this rank's
+    heads and channels)."""
     B, S, d = x.shape
-    d_inner = expand * d
-    nh = d_inner // head_dim
+    nh = expand * d // head_dim
     dt_ = x.dtype
+    params, x, heads = _local(params, x, nh, ctx)
 
     z = x @ params["w_z"].to(dt_)
     xi = x @ params["w_x"].to(dt_)
     bc = x @ params["w_bc"].to(dt_)
-    dt = x @ params["w_dt"].to(dt_)
+    dt = x @ params["w_dt"][:, heads].to(dt_)
 
     xi_raw, bc_raw = xi, bc            # pre-conv tails feed the decode cache
     xi = F.silu(_causal_depthwise_conv(xi, params["conv_x"].to(dt_)))
     bc = F.silu(_causal_depthwise_conv(bc, params["conv_bc"].to(dt_)))
     Bm, Cm = bc.chunk(2, dim=-1)
 
-    dt = F.softplus(dt.float() + params["dt_bias"].float())
-    A = -torch.exp(params["A_log"].float())
-    xh = xi.reshape(B, S, nh, head_dim)
+    dt = F.softplus(dt.float() + params["dt_bias"][heads].float())
+    A = -torch.exp(params["A_log"][heads].float())
+    xh = xi.reshape(B, S, -1, head_dim)
 
     y, final_state = ssd_chunked(xh, dt, A, Bm, Cm, chunk)
-    y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
-    y = y.reshape(B, S, d_inner)
-    y = rmsnorm(y * F.silu(z), params["norm_scale"])
-    out = y @ params["w_out"].to(dt_)
+    y = y + params["D"][heads].to(y.dtype)[None, None, :, None] * xh
+    y = y.reshape(B, S, -1)
+    y = split_rmsnorm(y * F.silu(z), params["norm_scale"], ctx, "mlp")
+    out = ctx.psum(y @ params["w_out"].to(dt_), "mlp")
     if return_state:
         cw = params["conv_x"].shape[0]
         return out, {"ssm_state": final_state,
@@ -205,19 +234,20 @@ def mamba2_fwd(params: Params, x: torch.Tensor, *, state: int,
 
 def mamba2_decode(params: Params, x: torch.Tensor,
                   cache: Dict[str, torch.Tensor], *, state: int,
-                  head_dim: int, expand: int
+                  head_dim: int, expand: int, ctx: ShardCtx = ShardCtx()
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One-token recurrent step: x (B, 1, d) -> (y (B, 1, d), new cache)."""
+    """One-token recurrent step: x (B, 1, d) -> (y (B, 1, d), new cache);
+    on a mesh the cache is this rank's heads and channels."""
     B, _, d = x.shape
-    d_inner = expand * d
-    nh = d_inner // head_dim
+    nh = expand * d // head_dim
     dt_ = x.dtype
+    params, x, heads = _local(params, x, nh, ctx)
     xt = x[:, 0]                                                 # (B, d)
 
     z = xt @ params["w_z"].to(dt_)
     xi = xt @ params["w_x"].to(dt_)
     bc = xt @ params["w_bc"].to(dt_)
-    dt = xt @ params["w_dt"].to(dt_)
+    dt = xt @ params["w_dt"][:, heads].to(dt_)
 
     # depthwise causal conv over the stored tail and this token
     win_x = torch.cat([cache["conv_x"], xi.float()[:, None]], dim=1)
@@ -228,18 +258,18 @@ def mamba2_decode(params: Params, x: torch.Tensor,
                                params["conv_bc"].float()))
 
     Bm, Cm = bc_c.chunk(2, dim=-1)                               # (B, N)
-    dtp = F.softplus(dt.float() + params["dt_bias"].float())     # (B, nh)
-    A = -torch.exp(params["A_log"].float())                      # (nh,)
-    xh = xi_c.reshape(B, nh, head_dim)                           # (B,nh,P)
+    dtp = F.softplus(dt.float() + params["dt_bias"][heads].float())
+    A = -torch.exp(params["A_log"][heads].float())               # (nh,)
+    xh = xi_c.reshape(B, -1, head_dim)                           # (B,nh,P)
 
     h = cache["ssm_state"]                                       # (B,nh,P,N)
     dA = torch.exp(dtp * A)                                      # (B, nh)
     h_new = (h * dA[:, :, None, None]
              + (dtp[:, :, None] * xh)[..., None] * Bm[:, None, None, :])
     y = (h_new @ Cm[:, None, :, None])[..., 0]                   # (B,nh,P)
-    y = y + params["D"].float()[None, :, None] * xh
-    y = y.reshape(B, d_inner).to(dt_)
-    y = rmsnorm(y * F.silu(z), params["norm_scale"])
-    out = (y @ params["w_out"].to(dt_))[:, None, :]              # (B,1,d)
+    y = y + params["D"][heads].float()[None, :, None] * xh
+    y = y.reshape(B, -1).to(dt_)
+    y = split_rmsnorm(y * F.silu(z), params["norm_scale"], ctx, "mlp")
+    out = ctx.psum(y @ params["w_out"].to(dt_), "mlp")[:, None, :]
     return out, {"ssm_state": h_new, "conv_x": win_x[:, 1:],
                  "conv_bc": win_bc[:, 1:]}

@@ -49,16 +49,19 @@ with segment-isolated attention (dense and moe only: the SSM recurrences
 have no segment reset); ``lm_per_segment_loss`` is the packed step's one
 differentiated forward.
 
-On a mesh (``ctx``, the dense and MoE families, ``MESH_FAMILIES``;
-reference :158-178, :283, :361) every leaf is this rank's shard of the
-reference's (``param_axes``): heads, the MLP's hidden width (arctic's
-dense residual's too) and the vocabulary over "model"; the experts over
-"model" under EP ("expert") or their d_ff under TP ("moe_mlp"); and under
-FSDP the "embed" dimension over the data axes, all-gathered inside each
-layer's remat region (so the gathered copy is recomputed, not kept) and
-its gradient reduce-scattered. The batch is this rank's rows; the MoE
-dispatch groups them as ``models/moe.py`` says. The ssm, hybrid, vlm and
-encdec families on a mesh are later slices (``MESH_LATER``).
+On a mesh (``ctx``, the dense, MoE, SSM and hybrid families,
+``MESH_FAMILIES``; reference :158-178, :283, :361) every leaf is this
+rank's shard of the reference's (``param_axes``): heads, the MLP's hidden
+width (arctic's dense residual's too), a Mamba2 block's inner width and
+SSD heads (``models/ssm.py``) and the vocabulary over "model"; the
+experts over "model" under EP ("expert") or their d_ff under TP
+("moe_mlp"); and under FSDP the "embed" dimension over the data axes,
+all-gathered inside each layer's remat region (so the gathered copy is
+recomputed, not kept) and its gradient reduce-scattered. zamba2's shared
+block takes the dense rules with its own axes (``param_axes(cfg)
+["shared"]``) at each site. The batch is this rank's rows; the MoE
+dispatch groups them as ``models/moe.py`` says. The vlm and encdec
+families on a mesh are a later slice (``MESH_LATER``).
 """
 from __future__ import annotations
 
@@ -86,18 +89,13 @@ from .ssm import init_mamba2, mamba2_axes, mamba2_fwd
 
 # the slice that brings each family onto a mesh (refused until then)
 MESH_LATER = {
-    "ssm": "the SSM family on a mesh (SSD heads over 'mlp', "
-           "ssm_cache_axes, long_500k's cache over the data axes) is a "
-           "later slice",
-    "hybrid": "the hybrid family on a mesh (its Mamba2 stack and shared "
-              "block) is a later slice, with the SSM family's",
     "vlm": "vlm and encdec on a mesh (cross-attention) are a later slice",
     "encdec": "vlm and encdec on a mesh (cross-attention) are a later "
               "slice",
 }
 
 
-MESH_FAMILIES = ("dense", "moe")
+MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_mesh(cfg: ModelConfig, ctx: ShardCtx) -> None:
@@ -242,11 +240,22 @@ def param_axes(cfg: ModelConfig) -> Axes:
     return axes
 
 
-def _layer_axes(axes: Axes) -> Axes:
-    """A stacked block's axes without its leading "layers"."""
+def _layer_axes(axes: Axes, lead: int = 1) -> Axes:
+    """A stacked block's axes without its ``lead`` leading "layers"."""
     if isinstance(axes, dict):
-        return {k: _layer_axes(v) for k, v in axes.items()}
-    return axes[1:]
+        return {k: _layer_axes(v, lead) for k, v in axes.items()}
+    return axes[lead:]
+
+
+def block_axes(cfg: ModelConfig, ctx: ShardCtx
+               ) -> Tuple[Optional[Axes], Optional[Axes]]:
+    """On a mesh, (one layer's axes, zamba2's shared block's): what FSDP
+    gathers in a block; (None, None) without a mesh."""
+    if ctx.mesh is None:
+        return None, None
+    axes = param_axes(cfg)
+    lead = 2 if cfg.family in ("hybrid", "vlm") else 1
+    return _layer_axes(axes["layers"], lead), axes.get("shared")
 
 
 def _init_local(specs, axes, gen: Optional[torch.Generator], device,
@@ -412,12 +421,16 @@ def _dense_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return x + ffn(cfg, p, h, ctx)
 
 
-def _mamba_block(cfg: ModelConfig, p: Params,
-                 x: torch.Tensor) -> torch.Tensor:
+def _mamba_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                 ctx: ShardCtx = ShardCtx(),
+                 axes: Optional[Axes] = None) -> torch.Tensor:
+    """Norm + Mamba2; on a mesh ``axes`` (the layer's) says which leaves
+    FSDP gathers here."""
+    p = ctx.gather_params(p, axes)
     h = apply_norm(cfg.norm_kind, x, p.get("ln1"))
     return x + mamba2_fwd(p["mamba"], h, state=cfg.ssm_state,
                           head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
-                          chunk=cfg.ssm_chunk)
+                          chunk=cfg.ssm_chunk, ctx=ctx)
 
 
 def gated_cross_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -523,22 +536,24 @@ def lm_hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     x = embed_tokens(params["embed"], tokens, dt, ctx)
     run = _runner(cfg, scoring)
 
+    lax, sax = block_axes(cfg, ctx)
     if cfg.family in ("dense", "moe"):
-        lax = _layer_axes(param_axes(cfg)["layers"]) if ctx.mesh else None
         for p in _unstack(params["layers"], cfg.num_layers):
             x = run(_dense_block, cfg, p, x, scoring, positions, segment_ids,
                     True, ctx, lax)
     elif cfg.family == "ssm":
         for p in _unstack(params["layers"], cfg.num_layers):
-            x = run(_mamba_block, cfg, p, x)
+            x = run(_mamba_block, cfg, p, x, ctx, lax)
     elif cfg.family == "hybrid":
-        # each site's Mamba2 layers, then the shared block
+        # each site's Mamba2 layers, then the shared block (the dense
+        # rules, its own axes)
         ns, k = n_sites(cfg)
         scfg = shared_cfg(cfg)
         for site in _unstack(params["layers"], ns):
             for p in _unstack(site, k):
-                x = run(_mamba_block, cfg, p, x)
-            x = run(_dense_block, scfg, params["shared"], x, scoring)
+                x = run(_mamba_block, cfg, p, x, ctx, lax)
+            x = run(_dense_block, scfg, params["shared"], x, scoring, None,
+                    None, True, ctx, sax)
     elif cfg.family == "vlm":
         # each site's self-attention layers, then its cross block
         ns, k = n_sites(cfg)

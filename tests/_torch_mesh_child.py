@@ -9,10 +9,12 @@ on a (2, 2) ("data", "model") mesh (B 16, S 32, b 4): qwen1.5 smoke;
 llama3 smoke with ``fsdp_params=True, shard_kv_heads=False``; grok smoke
 (TP experts) with ``moe_groups`` 0 (grouped dispatch) and 1 (global
 dispatch, the capacity split over "data"); arctic smoke (EP experts and
-the dense residual) with ``moe_groups`` 0:
+the dense residual) with ``moe_groups`` 0; mamba2 smoke (SSD heads over
+"mlp"); zamba2 smoke (its Mamba2 layers and the shared block):
 
 * ``ref``: the reference's ``es_step``, ``prefill`` and ``decode_step``
-  lowered on an ``AxisType.Auto`` mesh of the four host devices, their
+  lowered on an ``AxisType.Auto`` mesh of four host devices (in the rank
+  processes, a quarter of the cases each), their
   per-device FLOPs and collectives (``hlo_cost.analyze``); a MoE case's
   decode step at the serving batch SB, whose 4 tokens make one dispatch
   group spanning both data ranks;
@@ -25,7 +27,13 @@ the dense residual) with ``moe_groups`` 0:
   with the mesh's dispatch groups, ``_one_device_ctx``, and every MoE
   call's expert ids and kept slots are compared); each collective of
   ``ShardCtx`` on known tensors; and the engine's other steps and the
-  server on the mesh against the one-process port (``_paths_held``).
+  server on the mesh against the one-process port (``_paths_held``);
+  for the SSM cases the replicated Mamba2 leaves bitwise equal over
+  "model" after the step, and zamba2's serving under the "long" rules
+  (its shared block's cache sequence over "data", and over ("pod",
+  "data") on a (2, 1, 2) mesh); and checkpoints of a model-sharded state
+  (``_ckpt_held``: qwen1.5 and mamba2 smoke under FSDP saved from the
+  four ranks, restored onto the same grid and onto one process).
 """
 import contextlib
 import dataclasses
@@ -51,8 +59,15 @@ CASES = {"qwen1.5-0.5b": ("qwen1.5-0.5b", {}),
                                      "shard_kv_heads": False}),
          "grok-g0": ("grok-1-314b", {"moe_groups": 0}),
          "grok-g1": ("grok-1-314b", {"moe_groups": 1}),
-         "arctic-g0": ("arctic-480b", {"moe_groups": 0})}
+         "arctic-g0": ("arctic-480b", {"moe_groups": 0}),
+         "mamba2-780m": ("mamba2-780m", {}),
+         "zamba2-2.7b": ("zamba2-2.7b", {})}
 MOE = ("grok-g0", "grok-g1", "arctic-g0")
+SSM = ("mamba2-780m", "zamba2-2.7b")
+# a Mamba2 block's leaves whole on every rank (``models/ssm.py``)
+SSM_REPLICATED = ("w_bc", "w_dt", "conv_bc", "dt_bias", "A_log", "D")
+# the checkpoint cases: (arch, its smoke config under FSDP)
+CKPT = ("qwen1.5-0.5b", "mamba2-780m")
 FAST = {"xla_backend_optimization_level": 0,
         "xla_llvm_disable_expensive_passes": True}
 
@@ -159,9 +174,11 @@ OVERRIDES = {"embed": ("data",), "cache_seq": "model", "extra": "model"}
 def api_parity():
     """The reference's mesh and sharding helpers beside the port's on a
     (2, 2) mesh (the port's over a fake group of 4): ``make_mesh_for``'s
-    ``mesh_info``, and for each dense arch and kind ``make_ctx`` with
+    ``mesh_info``, and for each arch of a mesh family and each kind
+    ``make_ctx`` with
     ``rule_overrides`` (its rules), ``axes_to_sharding`` of the
-    parameters' axes (the experts' under EP and TP), ``batch_sharding``
+    parameters' axes (the experts' under EP and TP, the Mamba2 blocks',
+    zamba2's shared block's), ``batch_sharding``
     and ``replicated`` (as specs)
     -> {"mesh_for": [port, reference], "differ": [what differs]}."""
     import jax
@@ -187,7 +204,7 @@ def api_parity():
                            jmesh.mesh_info(jmesh.make_mesh_for(4, 2))]
         for arch in list_archs():
             cfg = get_config(arch)
-            if cfg.family not in ("dense", "moe"):
+            if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
                 continue
             tcfg = ModelConfig(**dataclasses.asdict(cfg))
             holder = []
@@ -335,7 +352,9 @@ def ref_one_device(arch, out_dir):
                                  ("m1", new.opt.m), ("v1", new.opt.v))
             for k, v in _flatten(tree).items()}
     ROUTES.record = None
-    np.savez(out_dir / f"{arch}.npz", s0=s0, w0=w0, gumbel=gumbel,
+    # written whole, then renamed: the ranks start on a file when it exists
+    tmp = out_dir / f"{arch}.tmp.npz"
+    np.savez(tmp, s0=s0, w0=w0, gumbel=gumbel,
              prompts=prompts, logits=logits,
              **{f"routes/{i}": r for i, r in enumerate(routes)},
              **{f"kept/{i}": _kept(r, cfg) for i, r in enumerate(routes)},
@@ -344,6 +363,18 @@ def ref_one_device(arch, out_dir):
              loss=np.float32(metrics["loss"]),
              sel_loss=np.float32(metrics["sel_loss"]),
              **{f"batch/{k}": v for k, v in batch.items()}, **flat)
+    os.replace(tmp, out_dir / f"{arch}.npz")
+
+
+def _refs(out_dir, arch, timeout=600):
+    """The reference's one-device outputs of a case, once written."""
+    import time
+    path, t0 = out_dir / f"{arch}.npz", time.perf_counter()
+    while not path.exists():
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"no {path.name} in {timeout} s")
+        time.sleep(0.1)
+    return dict(np.load(path))
 
 
 def _flatten(tree, prefix=""):
@@ -390,19 +421,30 @@ def rank_main(rank, port, out_dir):
     from repro_torch.core import engine as tengine
     from repro_torch.distributed.sharding import make_ctx, shard_tree
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import model as tmodel
     from repro_torch.models.transformer import param_axes, tree_map
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.optim.schedule import get_schedule
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=4)
     mesh = make_mesh((2, 2), ("data", "model"))
+    # zamba2's "long" serving with the cache sequence over two mesh dims
+    mesh3 = make_mesh((2, 1, 2), ("pod", "data", "model"))
     report = {"collectives": _collectives_ok(mesh, rank)}
+    # the parts that need no reference first: it compiles meanwhile
+    report["paths"] = {arch: _paths_held(mesh, arch) for arch in CASES}
+    report["ckpt"] = {arch: _ckpt_held(mesh, arch, out_dir / f"ckpt_{arch}")
+                      for arch in CKPT}
+    # a quarter of the reference's programs on the (2, 2) mesh, compiled
+    # here, beside the parent's (each process has its interpreter lock)
+    for arch in list(CASES)[rank::4]:
+        tmp = out_dir / f"ref_{arch}.tmp.json"
+        tmp.write_text(json.dumps(ref_mesh_costs(arch)))
+        os.replace(tmp, out_dir / f"ref_{arch}.json")
     for arch in CASES:
         _, cfg = _cfgs(arch, compute_dtype="float32")
         routes = []
         spy = _spy_routes(routes) if arch in MOE else None
-        z = dict(np.load(out_dir / f"{arch}.npz"))
+        z = _refs(out_dir, arch)
         axes = param_axes(cfg)
         ctx = make_ctx(cfg, mesh, "train")
 
@@ -434,35 +476,161 @@ def rank_main(rank, port, out_dir):
             st, [_unflatten(z, f"{p}/") for p in ("m1", "v1", "p1")],
             axes, ctx)
         r.update(bad=bad, eps_regime=eps_regime, n_weights=total)
+        if arch in SSM:
+            r["replicas_differ"] = _replicas_differ(st.params, ctx)
         # serving under the decode rules (llama: the cache's sequence over
         # "model"), held to the reference's prefill and decode logits
-        dctx = make_ctx(cfg, mesh, "decode")
-        params = mine(_unflatten(z, "p0/"), dctx)
-        cache = tmodel.init_cache(cfg, SB, P + GEN, device="cpu", ctx=dctx)
-        blo, bn = dctx.local("batch", SB)
-        prompts = torch.from_numpy(z["prompts"][blo:blo + bn].copy())
-        logits, cache = tmodel.prefill(cfg, params, {"tokens": prompts},
-                                       cache, dctx)
-        errs = [float(np.abs(logits.numpy()
-                             - z["logits"][0, blo:blo + bn]).max())]
-        pos = torch.full((1,), P, dtype=torch.long)
-        for i in range(GEN):
-            t = torch.from_numpy(np.argmax(z["logits"][i, blo:blo + bn],
-                                           axis=-1)[:, None].astype(np.int32))
-            logits, cache = tmodel.decode_step(cfg, params, t, cache, pos,
-                                               dctx)
-            errs.append(float(np.abs(logits.numpy()
-                                     - z["logits"][i + 1, blo:blo + bn]).max()))
-            pos += 1
-        r["logit_err"] = errs
-        r["cache_shape"] = list(cache["kv"]["k"].shape)
+        r["logit_err"], cache = _serve_held(cfg, z, mesh, "decode")
+        r["cache_shapes"] = {k: list(v.shape)
+                             for k, v in _named(cache).items()}
+        if cfg.family == "hybrid":
+            r["long_logit_err"] = {
+                str(m.mesh_dim_names): _serve_held(cfg, z, m, "long")[0]
+                for m in (mesh, mesh3)}
         if spy is not None:
             spy()
             r["routes"] = _routes_held(routes, z, make_ctx(cfg, mesh))
         report[arch] = r
-    report["paths"] = {arch: _paths_held(mesh, arch) for arch in CASES}
     (out_dir / f"rank{rank}.json").write_text(json.dumps(report))
     dist.destroy_process_group()
+
+
+def _serve_held(cfg, z, mesh, kind):
+    """Prefill and GEN decode steps under ``kind``'s rules on ``mesh`` on
+    the rank's rows of the prompts (every row when the rules leave the
+    batch whole), fed the reference's argmax tokens -> (each call's
+    largest distance to the reference's one-device logits, the cache)."""
+    import torch
+    from repro_torch.distributed.sharding import make_ctx, shard_tree
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import param_axes, tree_map
+    ctx = make_ctx(cfg, mesh, kind)
+    params = tree_map(lambda t: t.contiguous().clone(), shard_tree(
+        _unflatten(z, "p0/"), param_axes(cfg), ctx))
+    cache = tmodel.init_cache(cfg, SB, P + GEN, device="cpu", ctx=ctx)
+    lo, n = ctx.local("batch", SB)
+    logits, cache = tmodel.prefill(
+        cfg, params, {"tokens": torch.from_numpy(
+            z["prompts"][lo:lo + n].copy())}, cache, ctx)
+    errs = [float(np.abs(logits.numpy() - z["logits"][0, lo:lo + n]).max())]
+    pos = torch.full((1,), P, dtype=torch.long)
+    for i in range(GEN):
+        t = torch.from_numpy(np.argmax(z["logits"][i, lo:lo + n], axis=-1)
+                             [:, None].astype(np.int32))
+        logits, cache = tmodel.decode_step(cfg, params, t, cache, pos, ctx)
+        errs.append(float(np.abs(logits.numpy()
+                                 - z["logits"][i + 1, lo:lo + n]).max()))
+        pos += 1
+    return errs, cache
+
+
+def _replicas_differ(params, ctx):
+    """The Mamba2 leaves replicated over "model" that are not bitwise
+    equal on this rank and its "model" peer after a step."""
+    import torch
+    bad = []
+    for name, t in _named(params).items():
+        if name.split("/")[-1] in SSM_REPLICATED:
+            both = ctx.all_gather(t.contiguous()[None], "mlp", 0)
+            if not torch.equal(both[0], both[1]):
+                bad.append(name)
+    return bad
+
+
+def _ckpt_held(mesh, arch, ckpt_dir):
+    """A model-sharded ES state (``arch``'s smoke config under FSDP, one
+    step) saved from the four ranks, restored onto the same grid and onto
+    one process: each restore bitwise the state it was saved from (the
+    one process's: the state gathered whole), and one more step from
+    each bitwise the step without the round trip; a save without the
+    layout refused, naming the first split leaf -> failures."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.checkpointer import flatten, unflatten
+    from repro_torch.core import engine as tengine
+    from repro_torch.distributed.sharding import make_ctx, shard_tree
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.transformer import init_lm, param_axes, tree_map
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.optim.schedule import get_schedule
+    _, cfg = _cfgs(arch, compute_dtype="float32", fsdp_params=True)
+    es = tengine.ESConfig(minibatch=b, n_train=N)
+    opt = OptConfig(lr=1e-3)
+    full = init_lm(cfg, torch.Generator().manual_seed(3), "cpu")
+    rng = np.random.default_rng(13)
+    batches = []
+    for _ in range(2):
+        tok = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (B, S + 1)).astype(np.int32))
+        batches.append({"tokens": tok[:, :-1].contiguous(),
+                        "labels": tok[:, 1:].contiguous(),
+                        "sample_ids": torch.from_numpy(
+                            rng.permutation(N)[:B].astype(np.int32))})
+    bad = []
+
+    def engine(ctx, params):
+        eng = tengine.ESEngine(cfg, es, opt, get_schedule("constant", 1),
+                               ctx=ctx)
+        return eng, tengine.init_train_state(
+            cfg, es, opt, 0, "cpu", meta_batch=B, ctx=ctx,
+            params=tree_map(lambda t: t.contiguous().clone(), params))
+
+    def copy(tree):
+        return {k: v.clone() for k, v in flatten(tree).items()}
+
+    def differ(got, want, what):
+        got, want = flatten(got), flatten(want)
+        bad.extend(f"{what} {k}" for k in want
+                   if not torch.equal(got[k], want[k]))
+
+    ctx = make_ctx(cfg, mesh, "train")
+    lo, n = ctx.local("batch", B)
+    mine = [{k: v[lo:lo + n] for k, v in bt.items()} for bt in batches]
+    eng, st = engine(ctx, shard_tree(full, param_axes(cfg), ctx))
+    st = eng.es_step(st, mine[0])[0]
+    tree = eng.state_dict(st)
+    saved = copy(tree)
+    ck = Checkpointer(ckpt_dir)
+    try:
+        ck.save(tree, 1)
+        bad.append("saved without a layout")
+    except ValueError as e:
+        if "params/embed/tok" not in str(e):
+            bad.append(f"refusal names no leaf: {e}")
+    layout = eng.checkpoint_layout()
+    ck.save(tree, 1, layout=layout)
+    dist.barrier()
+    manifest = ck.manifest(1)["metadata"]["layout"]
+    if manifest["mesh"] != {"axis_names": ["data", "model"],
+                            "shape": [2, 2]} or \
+            manifest["axes"]["params/embed/tok"] != ["vocab", "embed"]:
+        bad.append(f"manifest {manifest['mesh']}")
+    # the same grid: a fresh state's tree as the template
+    eng2, st2 = engine(ctx, shard_tree(full, param_axes(cfg), ctx))
+    st2 = eng2.load_state_dict(st2, ck.restore(eng2.state_dict(st2), 1,
+                                               layout=layout))
+    differ(eng2.state_dict(st2), saved, "grid")
+    # one process: every leaf whole, the gathered state
+    whole = {k: layout.gather(k, v) for k, v in saved.items()}
+    eng1, st1 = engine(ShardCtx(), full)
+    st1 = eng1.load_state_dict(st1, ck.restore(eng1.state_dict(st1), 1))
+    differ(eng1.state_dict(st1), whole, "one process")
+    # one more step from each restore, and from the states without one
+    m2 = eng2.es_step(st2, mine[1])[1]
+    m = eng.es_step(st, mine[1])[1]
+    differ(eng2.state_dict(st2), copy(eng.state_dict(st)), "grid step")
+    if float(m2["loss"]) != float(m["loss"]):
+        bad.append("grid step loss")
+    engw, stw = engine(ShardCtx(), full)
+    stw = engw.load_state_dict(stw, unflatten(whole))
+    m1 = eng1.es_step(st1, batches[1])[1]
+    mw = engw.es_step(stw, batches[1])[1]
+    differ(eng1.state_dict(st1), copy(engw.state_dict(stw)),
+           "one-process step")
+    if float(m1["loss"]) != float(mw["loss"]):
+        bad.append("one-process step loss")
+    return bad
 
 
 def _spy_routes(record):
@@ -539,7 +707,12 @@ def _paths_held(mesh, arch):
     ``pipelined_step`` and a ``flush_step``; ``Server.generate`` at
     temperature 0.8; and a state that ``init_train_state(ctx)`` draws
     without parameters (``_init_held``). A MoE case's one-process calls
-    take the mesh's dispatch groups (``_mesh_groups``)."""
+    take the mesh's dispatch groups (``_mesh_groups``). The SSM cases run
+    ``baseline_step``, the server and the draw: a second AdamW step
+    carries the first one's eps-regime weights (gradients near 1e-8,
+    1.4 % of mamba2 smoke's) into the forward, and a few weights then
+    leave 1e-5; the two-step paths are the engine's, held on the other
+    cases."""
     with _mesh_groups(2):
         return _paths_held_grouped(mesh, arch)
 
@@ -610,17 +783,19 @@ def _paths_held_grouped(mesh, arch):
     (e1, s1), (em, sm) = pair()
     res["baseline"] = held(s1, sm, [(e1.baseline_step(s1, batches[0])[1],
                                      em.baseline_step(sm, mine[0])[1])])
-    (e1, s1), (em, sm) = pair(FreqSchedule(k=2))
-    res["scheduled"] = held(s1, sm, [
-        (e1.scheduled_step(s1, batches[i])[1],
-         em.scheduled_step(sm, mine[i])[1]) for i in range(2)])
-    (e1, s1), (em, sm) = pair()
-    e1.prime_step(s1, batches[0])
-    em.prime_step(sm, mine[0])
-    res["pipelined"] = held(s1, sm, [
-        (e1.pipelined_step(s1, tuple(batches))[1],
-         em.pipelined_step(sm, tuple(mine))[1]),
-        (e1.flush_step(s1, batches[1])[1], em.flush_step(sm, mine[1])[1])])
+    if arch not in SSM:
+        (e1, s1), (em, sm) = pair(FreqSchedule(k=2))
+        res["scheduled"] = held(s1, sm, [
+            (e1.scheduled_step(s1, batches[i])[1],
+             em.scheduled_step(sm, mine[i])[1]) for i in range(2)])
+        (e1, s1), (em, sm) = pair()
+        e1.prime_step(s1, batches[0])
+        em.prime_step(sm, mine[0])
+        res["pipelined"] = held(s1, sm, [
+            (e1.pipelined_step(s1, tuple(batches))[1],
+             em.pipelined_step(sm, tuple(mine))[1]),
+            (e1.flush_step(s1, batches[1])[1],
+             em.flush_step(sm, mine[1])[1])])
     dctx = make_ctx(cfg, mesh, "decode")
     prompts = rng.integers(0, cfg.vocab_size, (SB, P)).astype(np.int32)
     want = Server(cfg, device="cpu", params=full).generate(
@@ -739,12 +914,12 @@ def main(out_dir):
     out_dir.mkdir(parents=True, exist_ok=True)
     result = {"ref": {}, "port": {}}
     _record_routes()
-    # the reference's programs compile in threads (XLA's compiler leaves
-    # the interpreter lock); the port's traces share one fake process
-    # group, so they stay on this thread; the four ranks run while this
-    # process lowers the reference on the mesh
-    with ThreadPoolExecutor(len(CASES)) as pool:
-        list(pool.map(lambda c: ref_one_device(c, out_dir), CASES))
+    # the four ranks start with the parts that need no reference, compile
+    # the reference's mesh programs (a quarter each) and take each case's
+    # one-device reference once it is written; meanwhile this process
+    # traces the port (one fake process group, on this thread, before the
+    # reference's threads take the interpreter lock), then runs the
+    # reference on one device in threads (XLA's compiler leaves the lock)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -753,13 +928,15 @@ def main(out_dir):
                                str(port), str(out_dir)], env=env)
              for r in range(4)]
     try:
+        for arch in CASES:
+            result["port"][arch] = port_mesh_costs(arch)
+        result["api"] = api_parity()
         with ThreadPoolExecutor(len(CASES)) as pool:
-            ref = {c: pool.submit(ref_mesh_costs, c) for c in CASES}
-            for arch in CASES:
-                result["port"][arch] = port_mesh_costs(arch)
-            result["api"] = api_parity()
-            result["ref"] = {c: f.result() for c, f in ref.items()}
+            list(pool.map(lambda c: ref_one_device(c, out_dir), CASES))
         rcs = [p.wait(timeout=300) for p in procs]
+        if rcs == [0, 0, 0, 0]:
+            result["ref"] = {c: json.loads((out_dir / f"ref_{c}.json")
+                                           .read_text()) for c in CASES}
     finally:
         for p in procs:
             if p.poll() is None:

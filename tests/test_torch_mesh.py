@@ -1,5 +1,5 @@
-"""PyTorch port: model sharding over a ``DeviceMesh`` (the dense and MoE
-families).
+"""PyTorch port: model sharding over a ``DeviceMesh`` (the dense, MoE,
+SSM and hybrid families), and checkpoints of a model-sharded state.
 
 * ``make_rules`` gives the reference's rules for every arch and kind on
   the reference's (16, 16) and (2, 16, 16) meshes; ``param_axes`` is the
@@ -11,14 +11,16 @@ families).
   a (2, 2) ("data", "model") mesh, qwen1.5 smoke, llama3 smoke with
   ``fsdp_params=True, shard_kv_heads=False``, grok smoke (TP experts)
   with ``moe_groups`` 0 and 1 and arctic smoke (EP experts, the dense
-  residual) with ``moe_groups`` 0, B 16, S 32, b 4 (a MoE decode step at
-  batch 4: one dispatch group spanning both data ranks):
+  residual) with ``moe_groups`` 0, mamba2 smoke and zamba2 smoke, B 16,
+  S 32, b 4 (a MoE decode step at batch 4: one dispatch group spanning
+  both data ranks):
   - the port's fake-group trace has the reference's per-device FLOPs
     (``hlo_cost.analyze``): prefill and decode exactly; the ES step less
-    the reference's one-hot einsums (2 x (B + b) / dp x S x V / m) and,
-    for llama's replicated KV heads, less the training forward's K/V
+    the reference's one-hot einsums (2 x (B + b) / dp x S x V / m), for
+    llama's replicated KV heads less the training forward's K/V
     projections that XLA splits over "model" (the scoring forward's and
-    the backward's it does not);
+    the backward's it does not), and for a Mamba2 layer less three
+    reductions of the SSD backward that XLA forms as dots;
   - the port's collectives per kind equal its own count from the shapes
     (beside the reference's, which XLA places itself);
   - four gloo ranks run the port's sharded ``es_step``, ``prefill`` and
@@ -27,7 +29,15 @@ families).
     outputs at ``test_torch_families.py``'s tolerances and exemptions;
     a MoE case's every dispatch (the expert ids and kept pairs of each
     group the rank routes) equals the reference's, whose one-device run
-    groups the tokens as the mesh does.
+    groups the tokens as the mesh does; the Mamba2 leaves replicated
+    over "model" stay bitwise equal over it after the step; zamba2
+    serves under the "long" rules (the shared block's cache sequence
+    over "data", and over ("pod", "data") on a (2, 1, 2) mesh);
+  - a model-sharded ES state (qwen1.5 and mamba2 smoke under FSDP)
+    saved from the four ranks restores bitwise onto the same grid and
+    onto one process, one more step from each restore is bitwise the
+    step without the round trip, and a save without its layout raises
+    naming the leaf.
 * The checkpointed cross-entropy's extra work against the reference at
   one device: the recomputed logits less the one-hot einsums, to the FLOP.
 * ``xent_partials``' plain version leaves a label outside its vocabulary
@@ -83,7 +93,8 @@ ARCHS = {"qwen1.5-0.5b": {},
 MOE = {"grok-g0": ("grok-1-314b", {"moe_groups": 0}),
        "grok-g1": ("grok-1-314b", {"moe_groups": 1}),
        "arctic-g0": ("arctic-480b", {"moe_groups": 0})}
-CASES = {**{a: (a, over) for a, over in ARCHS.items()}, **MOE}
+SSM = {"mamba2-780m": ("mamba2-780m", {}), "zamba2-2.7b": ("zamba2-2.7b", {})}
+CASES = {**{a: (a, over) for a, over in ARCHS.items()}, **MOE, **SSM}
 
 
 class _FakeMesh:
@@ -195,11 +206,36 @@ def _onehot(cfg):
 def _kv_split(cfg):
     """The training forward's K/V projections XLA splits over "model"
     when KV heads are replicated: (1 - 1 / m) of them, a layer."""
-    if cfg.shard_kv_heads and cfg.num_kv_heads % M == 0:
+    if cfg.family == "ssm" or (cfg.shard_kv_heads
+                               and cfg.num_kv_heads % M == 0):
         return 0
     kv = cfg.num_kv_heads * cfg.resolved_head_dim()
     return cfg.num_layers * 2 * (2 * b // DP * S * cfg.d_model * kv) \
         * (M - 1) // M
+
+
+def _ssd_backward(cfg):
+    """The SSD backward's reductions that XLA forms as dots (batched over
+    every other dimension) and the port as a product and a sum, a device:
+    the gradients of the two decay factors (``decay_states``,
+    ``state_decay``: a sum over the head dim P) and of C B^T (a sum over
+    the heads), 2 x (2 x H_l x P + H_l x chunk) a trained token, a
+    Mamba2 layer."""
+    if cfg.family not in ("ssm", "hybrid"):
+        return 0
+    hl = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim // M
+    return cfg.num_layers * 2 * (b // DP * S) * (
+        2 * hl * cfg.ssm_head_dim + hl * cfg.ssm_chunk)
+
+
+def _attn_layers(cfg):
+    """The self-attention layers a forward runs (a flash launch each on
+    the card's route)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.hybrid_attn_every
+    return cfg.num_layers
 
 
 def test_mesh_flops_match_reference(mesh_run):
@@ -210,14 +246,16 @@ def test_mesh_flops_match_reference(mesh_run):
                                      "shape": [2, 2], "n_devices": 4}
         assert port["prefill"]["flops"] == ref["prefill"]["flops"], arch
         assert port["decode"]["flops"] == ref["decode"]["flops"], arch
-        assert port["train"]["flops"] == (ref["train"]["flops"]
-                                          - _onehot(cfg) + _kv_split(cfg)), \
+        assert port["train"]["flops"] == (
+            ref["train"]["flops"] - _onehot(cfg) + _kv_split(cfg)
+            - _ssd_backward(cfg)), \
             (arch, port["train"]["flops"], ref["train"]["flops"])
-        L = cfg.num_layers
+        flash = {"flash_attn": _attn_layers(cfg)} if _attn_layers(cfg) \
+            else {}
         assert port["train"]["kernel_launches"] == {
-            "flash_attn": L, "xent_partials": 1, "xent_combine": 1,
+            **flash, "xent_partials": 1, "xent_combine": 1,
             "score_update": 1}
-        assert port["prefill"]["kernel_launches"] == {"flash_attn": L}
+        assert port["prefill"]["kernel_launches"] == flash
     q = mesh_run["ref"]["qwen1.5-0.5b"]["train"]["flops"]
     assert q == 59_719_680          # 1/4 of the one-device 238,878,720
 
@@ -326,21 +364,42 @@ def test_four_gloo_ranks_match_reference(mesh_run):
             assert max(r["logit_err"]) < 1e-4, (where, r["logit_err"])
             if arch in MOE:
                 assert r["routes"] == [], (where, r["routes"])
+            if arch in SSM:
+                assert r["replicas_differ"] == [], (where,
+                                                    r["replicas_differ"])
         # llama decodes from a cache whose sequence is split over "model"
-        assert report["llama3-8b"]["cache_shape"][2] == (S // 2 + 4) // M
-        assert report["qwen1.5-0.5b"]["cache_shape"][3] == 4 // M
+        shapes = {a: report[a]["cache_shapes"] for a in CASES}
+        assert shapes["llama3-8b"]["kv/k"][2] == (S // 2 + 4) // M
+        assert shapes["qwen1.5-0.5b"]["kv/k"][3] == 4 // M
+        # an SSM cache: heads and inner channels over "mlp", B/C whole
+        nh = 8                                     # 128 inner / 16
+        for a in SSM:
+            assert shapes[a]["ssm/ssm_state"][-3] == nh // M, a
+            assert shapes[a]["ssm/conv_x"][-1] == 128 // M, a
+            assert shapes[a]["ssm/conv_bc"][-1] == 32, a
+        assert shapes["zamba2-2.7b"]["attn_kv/k"][-2] == 4 // M
+        # zamba2 at long_500k's rules: every row on every rank, its shared
+        # block's cache sequence over "data", or over ("pod", "data")
+        for mesh, errs in report["zamba2-2.7b"]["long_logit_err"].items():
+            assert max(errs) < 1e-4, (rank, mesh, errs)
 
 
 def test_four_gloo_ranks_run_the_other_paths(mesh_run):
     """``baseline_step``, ``scheduled_step`` (a stale leg), prime +
     ``pipelined_step`` + flush, ``Server.generate`` at temperature 0.8
     and a parameterless ``init_train_state(ctx)`` on the mesh, each held
-    to the one-process port (float32, the families test's rule)."""
+    to the one-process port (float32, the families test's rule); the SSM
+    cases' two-step paths are not held elementwise (their first step's
+    eps-regime weights move the second step's forward)."""
     assert mesh_run["rank_rcs"] == [0, 0, 0, 0]
     for rank, report in enumerate(mesh_run["ranks"]):
+        assert set(report["paths"]) == set(CASES)
         for arch, r in report["paths"].items():
             where = f"rank {rank} {arch}"
-            for path in ("baseline", "scheduled", "pipelined"):
+            paths = ("baseline",) if arch in SSM else (
+                "baseline", "scheduled", "pipelined")
+            assert set(r) == {*paths, "server_tokens_equal", "init"}, where
+            for path in paths:
                 assert r[path]["bad"] == [], (where, path, r[path]["bad"])
                 assert r[path]["eps_regime"] <= r[path]["n_weights"] // 50, \
                     (where, path)
@@ -348,10 +407,24 @@ def test_four_gloo_ranks_run_the_other_paths(mesh_run):
             assert r["init"] == [], (where, r["init"])
 
 
+def test_model_sharded_checkpoint_round_trips(mesh_run):
+    """qwen1.5 and mamba2 smoke under FSDP, one ES step on the (2, 2)
+    mesh: saved from the four ranks (each split leaf gathered whole),
+    restored onto the same grid and onto one process bitwise, one more
+    step from each restore bitwise the step without the round trip; a
+    save without the layout refused, naming ``params/embed/tok``."""
+    assert mesh_run["rank_rcs"] == [0, 0, 0, 0]
+    for rank, report in enumerate(mesh_run["ranks"]):
+        assert set(report["ckpt"]) == {"qwen1.5-0.5b", "mamba2-780m"}
+        for arch, bad in report["ckpt"].items():
+            assert bad == [], (rank, arch, bad)
+
+
 def test_sharding_helpers_match_reference(mesh_run):
     """``make_mesh_for``, ``make_ctx(rule_overrides)``,
     ``axes_to_sharding``, ``batch_sharding`` and ``replicated`` against
-    the reference's on a (2, 2) mesh, every dense arch and kind."""
+    the reference's on a (2, 2) mesh, every arch of a mesh family (dense,
+    MoE, SSM, hybrid) and kind."""
     api = mesh_run["api"]
     assert api["mesh_for"][0] == api["mesh_for"][1] == {
         "axis_names": ["data", "model"], "shape": [2, 2], "n_devices": 4}
@@ -376,12 +449,20 @@ def test_run_cell_on_an_explicit_mesh_and_refusals():
     assert moe["collectives"]["all-gather"]["count"] > 64
     assert "does not split evenly: heads 56 over model 16" in dryrun.run_cell(
         "arctic-480b", "train_4k", "moe_grouped_ep", mesh="multi")["refused"]
-    for arch, why in (("mamba2-780m", "SSM family"),
-                      ("zamba2-2.7b", "hybrid family"),
-                      ("llama-3.2-vision-11b", "vlm and encdec"),
-                      ("seamless-m4t-large-v2", "vlm and encdec")):
+    # the SSM and hybrid families at long_500k's rules: mamba2's SSD
+    # heads over "model" on 16 x 16; zamba2 on 2 x 16 x 16, its shared
+    # block's cache sequence over ("pod", "data"), the partial softmaxes
+    # all-gathered over that flattened group
+    for arch, mesh in (("mamba2-780m", "single"), ("zamba2-2.7b", "multi")):
+        got = dryrun.run_cell(arch, "long_500k", "es", mesh=mesh)
+        assert "refused" not in got and got["flops"] > 0, (arch, got)
+        assert got["kernel_launches"] == {}, arch      # decode: no kernel
+        assert got["collectives"]["all-reduce"]["count"] > 0, arch
+    assert got["mesh_info"]["shape"] == [2, 16, 16]
+    for arch in ("llama-3.2-vision-11b", "seamless-m4t-large-v2"):
         got = dryrun.run_cell(arch, "train_4k", "es", mesh="single")
-        assert why in got["refused"] and "later slice" in got["refused"]
+        assert "vlm and encdec" in got["refused"] and \
+            "later slice" in got["refused"]
     assert "shards no model" in dryrun.run_cell(
         "llama3-8b", "train_4k", "kv_shard")["refused"]
     assert "shards no model" in dryrun.run_cell(
